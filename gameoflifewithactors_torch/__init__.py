@@ -2,10 +2,11 @@
 and CUDA.
 
 The port of ``gameoflifewithactors_tpu`` to one NVIDIA H100: the same
-rules, bit layout, engine and actor-shaped façade, written in PyTorch, with
-the temporal-blocked packed stencil as a hand-written CUDA kernel
-(``ops/cuda_stencil.py``, ``csrc/life_packed.cu``). It imports nothing of
-JAX or of the JAX package. Entry points run on ``"cuda"`` unless the
+rules (life-like, Generations, Larger than Life), bit layout, engine and
+actor-shaped façade, written in PyTorch, with the temporal-blocked packed
+stencils as hand-written CUDA kernels (``ops/cuda_stencil.py``,
+``csrc/life_packed.cu``, ``csrc/life_generations.cu``,
+``csrc/life_ltl.cu``). It imports nothing of JAX or of the JAX package. Entry points run on ``"cuda"`` unless the
 caller passes ``device="cpu"``.
 """
 
@@ -17,10 +18,21 @@ from .models.rules import (  # noqa: F401
     Rule,
     parse_rule,
 )
+from .models.generations import (  # noqa: F401
+    BRIANS_BRAIN,
+    GENERATIONS_REGISTRY,
+    GenRule,
+    STAR_WARS,
+    parse_any,
+    parse_generations,
+)
+from .models.ltl import BOSCO, LTL_REGISTRY, LtLRule, parse_ltl  # noqa: F401
 from .models import seeds  # noqa: F401
 from .ops.stencil import Topology, step, multi_step  # noqa: F401
 from .ops.bitpack import pack, unpack, population  # noqa: F401
 from .ops.packed import step_packed, multi_step_packed  # noqa: F401
+from .ops.generations import multi_step_generations, step_generations  # noqa: F401
+from .ops.ltl import multi_step_ltl, step_ltl  # noqa: F401
 from .engine import Engine  # noqa: F401
 from .coordinator import GridCoordinator, RenderFrame  # noqa: F401
 from .scheduler import TickScheduler  # noqa: F401

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain ``extern "C"`` interface and loaded with
-:mod:`ctypes`. Libraries go to ``_build/`` beside this file, named by a hash
+:mod:`ctypes`; :func:`build_all` compiles several at once, one ``nvcc``
+each. Libraries go to ``_build/`` beside this file, named by a hash
 of the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. Importing this module needs no ``nvcc``; a build that
 fails raises with the compiler's output.
@@ -67,22 +68,41 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _compile(name: str, so: str) -> float:
+def _start(name: str, so: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu``; returns what :func:`_finish`
+    needs."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
+    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return src, so, tmp, proc, time.perf_counter()
+
+
+def _finish(job) -> float:
+    """Wait for a build started by :func:`_start`; returns its seconds."""
+    src, so, tmp, proc, t0 = job
+    out, err = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {src}:\n"
-            f"{proc.stdout}{proc.stderr}")
+            f"nvcc failed (exit {proc.returncode}) building {src}:\n{out}{err}")
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(out + err)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return seconds
+
+
+def build_all(names) -> Dict[str, float]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    for each, all started together; returns each build's seconds (0.0 for
+    a library that was already there). :func:`load` then loads them."""
+    with _lock:
+        jobs = {name: _start(name, library_path(name)) for name in names
+                if not os.path.exists(library_path(name))}
+        return {name: _finish(jobs[name]) if name in jobs else 0.0
+                for name in names}
 
 
 def load(name: str) -> Built:
@@ -92,7 +112,7 @@ def load(name: str) -> Built:
         if name in _loaded:
             return _loaded[name]
         so = library_path(name)
-        seconds = 0.0 if os.path.exists(so) else _compile(name, so)
+        seconds = 0.0 if os.path.exists(so) else _finish(_start(name, so))
         log = ""
         if os.path.exists(so + ".log"):
             with open(so + ".log") as f:

@@ -1,8 +1,9 @@
 """Simulation configuration and CLI parsing.
 
 Counterpart of ``gameoflifewithactors_tpu.config`` for the flags of the
-ported main path: grid, rule, topology, seed, backend, steps, rendering,
-rate, metrics, population and the device. ``SimulationConfig.build()``
+ported paths: grid, rule (life-like, Generations or Larger than Life),
+topology, seed, backend, steps, rendering, rate, metrics, population and
+the device. ``SimulationConfig.build()``
 assembles the coordinator and scheduler, so the CLI and library users
 share one construction path.
 """
@@ -22,7 +23,7 @@ from .ops.stencil import Topology
 class SimulationConfig:
     height: int = 64
     width: int = 64
-    rule: str = "B3/S23"
+    rule: str = "B3/S23"                    # any family parse_any reads
     topology: str = "torus"                 # torus | dead
     seed: Optional[str] = "glider"          # pattern name, @file.rle, or None
     random_fill: Optional[float] = None     # Bernoulli p (overrides seed)
@@ -103,7 +104,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--grid", type=_parse_geometry, default=(64, 64), metavar="HxW",
                    help="grid size, e.g. 1024x1024 (default 64x64, the reference's size)")
     p.add_argument("--rule", default="B3/S23",
-                   help="B/S rule string or name (conway, highlife, 'day & night', ...)")
+                   help="rule string or name: life-like B/S (conway, highlife, "
+                        "'day & night', ...), Generations (B2/S/C3, brain, "
+                        "starwars, ...) or Larger than Life "
+                        "(R5,C0,M1,S34..58,B34..45, bosco, majority, ...)")
     p.add_argument("--topology", choices=[t.value for t in Topology], default="torus")
     p.add_argument("--seed", default="glider",
                    help="pattern name, @file.rle, 'random', or 'empty'")

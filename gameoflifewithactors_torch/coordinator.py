@@ -8,7 +8,9 @@ subscribe — over one :class:`~.engine.Engine`: a cell's "mailbox" is bit
 (32·j+i) of word (r, j), its "receive" the carry-save neighbour sum.
 
 Subscribers play the reference's Renderer role: callables invoked after
-each tick (or every ``render_every`` generations) with a RenderFrame.
+each tick (or every ``render_every`` generations) with a RenderFrame. Any
+rule the Engine takes (life-like, Generations, Larger than Life) passes
+through unchanged; a multi-state frame carries the cells' states.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from .engine import Engine, resolve_device
 from .models import seeds as seeds_lib
+from .models.generations import GenRule
+from .models.ltl import LtLRule
 from .models.rules import Rule
 from .ops.stencil import Topology
 from .utils.metrics import MetricsLogger, StepMetrics
@@ -46,7 +50,7 @@ class GridCoordinator:
     def __init__(
         self,
         shape: Tuple[int, int],
-        rule: "Rule | str" = "B3/S23",
+        rule: "Rule | GenRule | LtLRule | str" = "B3/S23",
         *,
         seed: "str | np.ndarray | None" = None,
         seed_origin: Optional[Tuple[int, int]] = None,
@@ -114,7 +118,7 @@ class GridCoordinator:
     # -- reference surface ---------------------------------------------------
 
     @property
-    def rule(self) -> Rule:
+    def rule(self) -> "Rule | GenRule | LtLRule":
         return self.engine.rule
 
     @property

@@ -1,11 +1,13 @@
 """Device-side simulation engine: owns the grid tensor and steps it.
 
 Counterpart of ``gameoflifewithactors_tpu.engine`` for single-device
-life-like (B/S) rules. The state is one tensor -- bit-packed int32 words,
-or one byte per cell on the dense path -- stepped by the hand-written CUDA
-kernel (:mod:`.ops.cuda_stencil`) or by plain PyTorch. ``step`` only
-enqueues work on the current CUDA stream; data comes back to the host only
-when :meth:`Engine.snapshot` or :meth:`Engine.population` asks for it.
+life-like (B/S), Generations and Larger-than-Life rules. The state is one
+tensor — bit-packed int32 words, a ``(b, H, W/32)`` bit-plane stack for
+multi-state rules, or one byte per cell on the dense path — stepped by a
+hand-written CUDA kernel (:mod:`.ops.cuda_stencil`) or by plain PyTorch.
+``step`` only enqueues work on the current CUDA stream; data comes back to
+the host only when :meth:`Engine.snapshot` or :meth:`Engine.population`
+asks for it.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 Without a device and without CUDA, the constructor raises: it never runs
@@ -19,9 +21,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .models.rules import Rule, parse_rule, unported_family
+from .models.generations import GenRule, parse_any
+from .models.ltl import LtLRule
+from .models.rules import Rule
 from .ops import bitpack, cuda_stencil
+from .ops.generations import multi_step_generations
+from .ops.ltl import multi_step_ltl
 from .ops.packed import multi_step_packed
+from .ops.packed_generations import (
+    multi_step_packed_generations,
+    n_planes,
+    pack_generations_for,
+    population_packed_generations,
+    unpack_generations,
+)
+from .ops.packed_ltl import multi_step_ltl_packed, multi_step_ltl_planes
 from .ops.stencil import Topology, multi_step
 from .utils.interop import state_from_numpy
 
@@ -49,29 +63,36 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _parse(rule: "Rule | str") -> Rule:
-    if isinstance(rule, str):
-        family = unported_family(rule)
-        if family is not None:
-            raise _not_ported(f"the {family} rule family ({rule!r})")
-    return parse_rule(rule)
+def _kernel_takes(rule, h: int, wp: int) -> bool:
+    """Whether a CUDA kernel serves ``rule`` on a packed (h, wp) grid."""
+    if isinstance(rule, GenRule):
+        return cuda_stencil.supported_generations((h, wp), n_planes(rule.states))
+    if isinstance(rule, LtLRule):
+        return cuda_stencil.supported_ltl((h, wp), rule)
+    return cuda_stencil.supported((h, wp))
 
 
 class Engine:
-    """Steps a Game-of-Life grid on one device.
+    """Steps a cellular-automaton grid on one device.
 
     Parameters
     ----------
-    grid: (H, W) uint8 array-like or tensor in {0, 1} -- the initial
-        universe. It is copied: the engine never aliases the caller's
-        buffer.
-    rule: a Rule or rule string ("B3/S23", "highlife", ...).
+    grid: (H, W) uint8 array-like or tensor -- the initial universe, with
+        states 0..C-1 (0 or 1 for binary rules). It is copied: the engine
+        never aliases the caller's buffer.
+    rule: a rule or rule string: life-like ("B3/S23", "highlife", ...),
+        Generations ("B2/S/C3", "brain", ...) or Larger than Life
+        ("R5,C0,M1,S34..58,B34..45", "bosco", ...).
     topology: TORUS (wrap) or DEAD (all-dead boundary).
-    backend: "auto" (default: on CUDA the "cuda" kernel for widths that
-        pack into 32-cell words and "dense" otherwise; on the CPU "packed"
-        for such widths and "dense" otherwise), "cuda" (the temporal-
-        blocked Hopper kernel), "packed" (32 cells/word SWAR in plain
-        torch) or "dense" (1 byte/cell).
+    backend: "auto" (default: on CUDA the rule's kernel for widths that
+        pack into 32-cell words, except multi-state LtL, which no kernel
+        serves and which takes "packed"; "dense" for other widths. On the
+        CPU what the JAX package picks off its TPU: "packed" for B/S and
+        Generations, "dense" for binary LtL, "packed" for multi-state LtL
+        with a diamond or a box of radius <= 3; "dense" for widths that do
+        not pack), "cuda" (the temporal-blocked Hopper kernel of the
+        rule's family), "packed" (32 cells/word SWAR in plain torch; a
+        bit-plane stack for multi-state rules) or "dense" (1 byte/cell).
     device: "cuda" (default) or "cpu".
     mesh: sharded engines are not ported yet; anything but None raises.
     """
@@ -79,7 +100,7 @@ class Engine:
     def __init__(
         self,
         grid,
-        rule: "Rule | str",
+        rule: "Rule | GenRule | LtLRule | str",
         *,
         topology: Topology = Topology.TORUS,
         backend: str = "auto",
@@ -97,7 +118,7 @@ class Engine:
     def from_packed(
         cls,
         words,
-        rule: "Rule | str",
+        rule: "Rule | GenRule | LtLRule | str",
         *,
         topology: Topology = Topology.TORUS,
         backend: str = "auto",
@@ -105,25 +126,38 @@ class Engine:
     ) -> "Engine":
         """An engine whose state is the given packed words: a host
         ``(H, W/32)`` uint32 array such as ``np.asarray(jax_engine.state)``,
-        or an int32 tensor. A run handed over mid-way continues bit for
-        bit."""
+        or a ``(b, H, W/32)`` bit-plane stack for a multi-state rule, or an
+        int32 tensor of either shape. A run handed over mid-way continues
+        bit for bit."""
         if isinstance(words, torch.Tensor):
-            if words.dtype != torch.int32 or words.dim() != 2:
-                raise TypeError("packed words must be a 2D int32 tensor")
+            if words.dtype != torch.int32 or words.dim() not in (2, 3):
+                raise TypeError("packed words must be a 2D or 3D int32 tensor")
             packed = words
         else:
             packed = state_from_numpy(words)
         self = cls.__new__(cls)
-        h, wp = packed.shape
+        h, wp = packed.shape[-2:]
         self._configure(rule, topology, backend, device, None,
                         (h, wp * bitpack.WORD))
+        want = n_planes(self._states) if self._states > 2 else None
+        have = packed.shape[0] if packed.dim() == 3 else None
+        if want != have:
+            raise ValueError(
+                f"{self.rule.notation} takes "
+                + (f"a ({want}, H, W/32) bit-plane stack" if want
+                   else "(H, W/32) words")
+                + f", got shape {tuple(packed.shape)}")
         packed = packed.to(self.device, copy=True)
-        self._state = packed if self._packed else bitpack.unpack(packed)
+        if self._layout == "dense":
+            self._state = unpack_generations(packed) if want else \
+                bitpack.unpack(packed)
+        else:
+            self._state = packed
         return self
 
     def _configure(self, rule, topology: Topology, backend: str, device,
                    mesh, shape: Tuple[int, int]) -> None:
-        self.rule = _parse(rule)
+        self.rule = parse_any(rule)
         if mesh is not None:
             raise _not_ported("the sharded (mesh) engine")
         if backend in _UNPORTED_BACKENDS:
@@ -132,28 +166,58 @@ class Engine:
             raise ValueError(
                 f"backend must be 'auto' or one of {BACKENDS}, got {backend!r}")
         self.device = resolve_device(device)
+        self._states = getattr(self.rule, "states", 2)
         h, w = shape
         packs = w % bitpack.WORD == 0
+        ltl_planes = isinstance(self.rule, LtLRule) and self._states > 2
         if backend == "auto":
-            if self.device.type == "cuda":
-                backend = "cuda" if packs and cuda_stencil.supported(
-                    (h, w // bitpack.WORD)) else "dense"
-            else:
-                backend = "packed" if packs else "dense"
+            backend = self._resolve_auto(h, w, packs, ltl_planes)
         if backend == "cuda":
             if self.device.type != "cuda":
                 raise ValueError(
                     "backend 'cuda' launches the CUDA kernel and needs a CUDA "
                     f"device, got {self.device}")
-            if not packs or not cuda_stencil.supported((h, w // bitpack.WORD)):
+            if ltl_planes:
                 raise ValueError(
-                    f"backend 'cuda' cannot take a {h}x{w} grid (the width "
-                    f"must be a multiple of {bitpack.WORD})")
+                    f"backend 'cuda' has no kernel for {self.rule.notation}: "
+                    "multi-state Larger than Life runs on 'packed' or 'dense'")
+            if not packs or not _kernel_takes(self.rule, h, w // bitpack.WORD):
+                raise ValueError(
+                    f"backend 'cuda' cannot take {self.rule.notation} on a "
+                    f"{h}x{w} grid (the width must be a multiple of "
+                    f"{bitpack.WORD})")
+        if backend == "packed" and not packs:
+            raise ValueError(
+                f"backend 'packed' needs a width that is a multiple of "
+                f"{bitpack.WORD}, got {w}")
         self.topology = topology
         self.backend = backend
         self.shape: Tuple[int, int] = (int(h), int(w))
         self.generation = 0
-        self._packed = backend in ("packed", "cuda")
+        # "words": (H, W/32) bits; "planes": (b, H, W/32) state bit-planes
+        if backend == "dense":
+            self._layout = "dense"
+        else:
+            self._layout = "planes" if self._states > 2 else "words"
+
+    def _resolve_auto(self, h: int, w: int, packs: bool,
+                      ltl_planes: bool) -> str:
+        if not packs:
+            return "dense"
+        if self.device.type == "cuda":
+            if ltl_planes:   # no kernel serves multi-state LtL
+                return "packed"
+            return "cuda" if _kernel_takes(self.rule, h, w // bitpack.WORD) \
+                else "dense"
+        if isinstance(self.rule, LtLRule):
+            # the JAX package's choice off its TPU: binary LtL on the byte
+            # path; C >= 3 on the plane stack for diamonds and box radius
+            # <= 3, else the byte path
+            if ltl_planes and (self.rule.neighborhood == "N"
+                               or self.rule.radius <= 3):
+                return "packed"
+            return "dense"
+        return "packed"
 
     def _cells(self, grid) -> torch.Tensor:
         """The grid as a new uint8 tensor on the engine's device, checked."""
@@ -166,23 +230,44 @@ class Engine:
         if tuple(cells.shape) != self.shape:
             raise ValueError(
                 f"grid shape {tuple(cells.shape)} != engine shape {self.shape}")
-        if cells.numel() and int(cells.max()) > 1:
+        top = int(cells.max()) if cells.numel() else 0
+        if top >= self._states:
             raise ValueError(
-                f"grid holds state {int(cells.max())} but rule "
-                f"{self.rule.notation} is binary: cells must be 0 or 1")
+                f"grid holds state {top} but rule {self.rule.notation} "
+                + (f"has only states 0..{self._states - 1}" if self._states > 2
+                   else "is binary: cells must be 0 or 1"))
         return cells
 
     def _encode(self, cells: torch.Tensor) -> torch.Tensor:
-        return bitpack.pack(cells) if self._packed else cells
+        if self._layout == "planes":
+            return pack_generations_for(cells, self.rule)
+        return bitpack.pack(cells) if self._layout == "words" else cells
 
     def _run(self, state: torch.Tensor, n: int) -> torch.Tensor:
+        rule, topology = self.rule, self.topology
+        if isinstance(rule, GenRule):
+            if self.backend == "cuda":
+                return cuda_stencil.multi_step_generations_kernel(
+                    state, n, rule=rule, topology=topology)
+            if self.backend == "packed":
+                return multi_step_packed_generations(state, n, rule=rule,
+                                                     topology=topology)
+            return multi_step_generations(state, n, rule=rule, topology=topology)
+        if isinstance(rule, LtLRule):
+            if self.backend == "cuda":
+                return cuda_stencil.multi_step_ltl_kernel(
+                    state, n, rule=rule, topology=topology)
+            if self.backend == "packed":
+                step = multi_step_ltl_planes if self._states > 2 \
+                    else multi_step_ltl_packed
+                return step(state, n, rule=rule, topology=topology)
+            return multi_step_ltl(state, n, rule=rule, topology=topology)
         if self.backend == "cuda":
             return cuda_stencil.multi_step_kernel(
-                state, n, rule=self.rule, topology=self.topology)
+                state, n, rule=rule, topology=topology)
         if self.backend == "packed":
-            return multi_step_packed(state, n, rule=self.rule,
-                                     topology=self.topology)
-        return multi_step(state, n, rule=self.rule, topology=self.topology)
+            return multi_step_packed(state, n, rule=rule, topology=topology)
+        return multi_step(state, n, rule=rule, topology=topology)
 
     # -- stepping ------------------------------------------------------------
 
@@ -204,8 +289,9 @@ class Engine:
 
     @property
     def state(self) -> torch.Tensor:
-        """The raw device tensor (packed int32 words or uint8 cells). A
-        step replaces it; use :meth:`snapshot` for a stable host copy."""
+        """The raw device tensor (packed int32 words, a bit-plane stack, or
+        uint8 cells). A step replaces it; use :meth:`snapshot` for a stable
+        host copy."""
         return self._state
 
     def snapshot(self, max_shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
@@ -213,17 +299,26 @@ class Engine:
         downsampled *on device* to fit within ``max_shape`` before the
         transfer, so rendering a 16384² universe to a console ships a few
         KB."""
-        dense = bitpack.unpack(self._state) if self._packed else self._state
+        if self._layout == "planes":
+            dense = unpack_generations(self._state)
+        elif self._layout == "words":
+            dense = bitpack.unpack(self._state)
+        else:
+            dense = self._state
         if max_shape is not None:
             dense = _downsample_max(dense, max_shape)
         # a copy: for a CPU tensor .numpy() would be a view of live state
         return np.array(dense.cpu().numpy(), dtype=np.uint8, copy=True)
 
     def population(self) -> int:
-        """Exact live-cell count (device-side count, host-side total)."""
-        if self._packed:
+        """Exact live-cell count (device-side count, host-side total). For
+        multi-state rules only state 1 is alive: dying states occupy space
+        but are not population."""
+        if self._layout == "planes":
+            return population_packed_generations(self._state)
+        if self._layout == "words":
             return bitpack.population(self._state)
-        return int(self._state.sum(dtype=torch.int64))
+        return int((self._state == 1).sum(dtype=torch.int64))
 
     # -- state injection -----------------------------------------------------
 

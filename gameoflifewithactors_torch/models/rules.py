@@ -12,9 +12,11 @@ with a live-neighbor count in B is born; a live cell with a count in S
 survives; everything else dies. Counts range over 0..8 (Moore neighborhood).
 
 This is the PyTorch package's own copy of ``gameoflifewithactors_tpu``'s
-rule algebra (the port imports nothing of that package). The other rule
-families (Generations, Larger than Life, elementary) are not ported yet:
-:func:`unported_family` recognises their notations so callers can say so.
+rule algebra (the port imports nothing of that package). The Generations
+and Larger-than-Life families live in :mod:`.generations` and :mod:`.ltl`
+(:func:`.generations.parse_any` dispatches between all three); the
+elementary family is not ported yet: :func:`unported_family` recognises
+its notation so callers can say so.
 """
 
 from __future__ import annotations
@@ -153,21 +155,17 @@ RULE_REGISTRY = {
 }
 
 
-# Notations and registry names of the rule families this package does not
-# port yet, so a request for one fails as "not yet ported" rather than as
-# an unparseable B/S string.
+# Notations of the rule families this package does not port yet, so a
+# request for one fails as "not yet ported" rather than as an unparseable
+# B/S string.
 _UNPORTED = (
-    ("Generations", re.compile(
-        r"^(?:b[0-8]*/s[0-8]*/[cg]\d+|[0-8]*/[0-8]*/\d+"
-        r"|brain|starwars|frogs|belzhab)$")),
-    ("Larger than Life", re.compile(r"^(?:r\d+,c\d+,.*|bosco|bugs|majority)$")),
     ("elementary", re.compile(r"^(?:w|rule)\d{1,3}$")),
 )
 
 
 def unported_family(spec: "str | Rule") -> "str | None":
     """The name of the not-yet-ported rule family ``spec`` belongs to, or
-    None for a life-like B/S rule (or anything else)."""
+    None for any other spec."""
     if isinstance(spec, Rule):
         return None
     key = spec.strip().lower().replace(" ", "").replace("'", "")

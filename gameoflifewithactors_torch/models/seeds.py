@@ -30,18 +30,36 @@ def from_plaintext(text: str) -> np.ndarray:
 
 
 _RLE_HEADER = re.compile(r"^\s*x\s*=\s*(\d+)\s*,\s*y\s*=\s*(\d+)", re.IGNORECASE)
+_RLE_RULE = re.compile(r"rule\s*=\s*([^\n]+)", re.IGNORECASE)
 
 
-def from_rle(text: str, states: int = 2) -> np.ndarray:
+def _header_states(text: str) -> int:
+    """Cell-state count from an RLE header's ``rule =`` clause (2 when the
+    rule is binary, absent, unparseable or of a family not ported — the
+    legacy decoder then applies)."""
+    m = _RLE_RULE.search(text)
+    if not m:
+        return 2
+    try:
+        from .generations import parse_any
+
+        return getattr(parse_any(m.group(1).strip()), "states", 2)
+    except Exception:
+        return 2
+
+
+def from_rle(text: str, states: "int | None" = None) -> np.ndarray:
     """Decode Game-of-Life RLE (``b``=dead, ``o``=alive, ``$``=EOL,
     ``!``=end, ``#``-comment lines, optional ``x=,y=,rule=`` header).
 
-    Golly's EXTENDED multi-state encoding is applied when ``states`` is
-    more than 2: ``.`` is state 0, ``A``..``X`` are 1..24, and a
-    ``p``..``y`` prefix adds 24·k (``pA``=25 … ``yO``=255). The
-    multi-state rule families are not ported yet, so unlike the JAX
-    package the header's rule does not select that reading. Binary RLE
-    keeps the legacy case-insensitive ``b``/``o`` reading."""
+    Golly's EXTENDED multi-state encoding is applied when the header's
+    rule (or an explicit ``states=``) has more than 2 states: ``.`` is
+    state 0, ``A``..``X`` are 1..24, and a ``p``..``y`` prefix adds 24·k
+    (``pA``=25 … ``yO``=255) — the format Golly writes for Generations and
+    multi-state Larger-than-Life patterns. Binary RLE keeps the legacy
+    case-insensitive ``b``/``o`` reading."""
+    if states is None:
+        states = _header_states(text)
     multistate = states > 2
     width = height = None
     body_parts = []

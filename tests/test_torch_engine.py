@@ -107,9 +107,11 @@ def test_cuda_backend_needs_a_cuda_device():
 
 
 def test_unported_families_and_backends_raise():
+    # Generations and Larger than Life are ported (tests/test_torch_*_families.py)
+    for rule in ["B2/S/C3", "brain", "bosco", "R2,C0,M1,S2..3,B3..3"]:
+        tg.Engine(np.zeros((8, 32), np.uint8), rule, device="cpu")
     for kwargs in [
-        dict(rule="B2/S/C3"), dict(rule="brain"), dict(rule="bosco"),
-        dict(rule="R2,C0,M1,S2..3,B3..3"), dict(rule="W110"),
+        dict(rule="W110"), dict(rule="rule30"),
         dict(backend="sparse"), dict(backend="paged"), dict(mesh=object()),
     ]:
         args = dict(rule="conway", **kwargs) if "rule" not in kwargs else dict(kwargs)
