@@ -11,16 +11,21 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    inner loop).
 2. Each kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer words), over rules, topologies, shapes up to
-   16384², generations per call and seam-crossing gliders.
-3. The three main paths, each a ``GridCoordinator`` at 16384² with a 50%
-   random soup under TORUS, stepped through ``run(...)`` with every
-   kernel's launch count set to 0 just before and read just after, and the
-   result held against the kernel's plain version from a copy of the start
-   state: B3/S23 (kernel B1), Brian's Brain (B3) and Bosco (B4). Then the
-   CLI in a subprocess for each rule family.
-4. Timing with CUDA events at 16384²: each kernel per launch, its plain
-   version, the plain packed path, the least time the card could take, and
-   a depth and tile sweep.
+   16384², generations per call, edge codes and seam-crossing gliders.
+3. The main paths, each driven with every kernel's launch count set to 0
+   just before and read just after: three ``GridCoordinator`` runs at
+   16384² with a 50% random soup under TORUS, held against the kernel's
+   plain version from a copy of the start state -- B3/S23 (kernel B1),
+   Brian's Brain (B3) and Bosco (B4) -- then the CLI in a subprocess for
+   each rule family. Then the session service (kernel B2): a full
+   256-slot lane of 1024² B3/S23 TORUS sessions, 64 B36/S23 DEAD sessions
+   and one 16384² session on mixed cursors through ``SessionService``,
+   every grid held against its own dedicated ``Engine`` run, compaction
+   after closes, and ``python -m gameoflifewithactors_torch serve`` over
+   HTTP in a subprocess.
+4. Timing with CUDA events: each kernel per launch at its main path's
+   shapes, its plain version, the plain packed path, the least time the
+   card could take, and a depth and tile sweep; the serving rate.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -44,7 +49,11 @@ INT32_LANES_PER_SM = 64      # 32-bit integer/logic results per SM per clock
 MAIN_SHAPE = (16384, 16384)
 MAIN_GENERATIONS = 300       # not a multiple of g: the shorter launch runs too
 MAIN_TICK = 100
-KERNELS = ("life_packed", "life_generations", "life_ltl")
+KERNELS = ("life_packed", "life_slab", "life_generations", "life_ltl")
+LANE_SHAPE = (1024, 1024)      # the serving sessions' grids
+LANE_SESSIONS = 256            # one full top-rung lane
+DEAD_SESSIONS = 64
+SERVE_GENERATIONS = 2000
 PALLAS = "gameoflifewithactors_tpu/ops/pallas_stencil.py"
 
 
@@ -206,12 +215,281 @@ def max_abs_err(a, b) -> int:
 
 def reset_launches(cs) -> None:
     cs.KERNEL_LAUNCHES = cs.GENERATIONS_LAUNCHES = cs.LTL_LAUNCHES = 0
+    cs.SLAB_LAUNCHES = 0
 
 
 def launches(cs) -> dict:
     return {"life_packed": cs.KERNEL_LAUNCHES,
+            "life_slab": cs.SLAB_LAUNCHES,
             "life_generations": cs.GENERATIONS_LAUNCHES,
             "life_ltl": cs.LTL_LAUNCHES}
+
+
+def seed_cells(shape, seed: int, fill: float = 0.35) -> np.ndarray:
+    """A session's cells as ``SessionService`` seeds them from ``fill`` and
+    ``rng_seed``."""
+    return (np.random.default_rng(seed).random(shape) < fill).astype(np.uint8)
+
+
+def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
+    """Phase 2 for B2: ``slab_step_kernel`` against ``slab_step_reference``
+    on batches of 1, 8 and 256 bands up to 16384 rows, every edge code and
+    g in {1, 3, 8, 16}, then a glider crossing a word seam through the
+    lane runner. Returns the largest error (0)."""
+    import torch
+    from gameoflifewithactors_torch.parallel.batched import \
+        multi_step_kernel_batched
+
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=rng,
+                             device=rng.device, dtype=torch.int64).to(torch.int32)
+
+    cases, worst = 0, 0
+
+    def hold(ext, g, rule, topology, code):
+        nonlocal cases, worst
+        got = cs.slab_step_kernel(ext, g, rule=rule, topology=topology,
+                                  edge_code=code)
+        want = cs.slab_step_reference(ext, g, rule=rule, topology=topology,
+                                      edge_code=code)
+        err = max_abs_err(got, want)
+        check(err == 0, f"B2 kernel != plain at {tuple(ext.shape)} {rule} "
+                        f"{topology} g={g} code={code}")
+        worst = max(worst, err)
+        cases += 1
+
+    for shape in [(1, 40, 3), (8, 72, 5)]:
+        ext = words(shape)
+        for rule in rules:
+            for topology in Topology:
+                for code in range(4):
+                    for g in (1, 3, 8, 16):
+                        hold(ext, g, rule, topology, code)
+    # the serving shapes: lanes of 1024^2 sessions (g = 8 and the 13-step
+    # remainder chunk of 5) and one 16384^2 band
+    for shape, gs in [((256, 1040, 32), (8,)), ((256, 1034, 32), (5,)),
+                      ((64, 1040, 32), (8,)), ((1, 16400, 512), (8,)),
+                      ((1, 16394, 512), (5,))]:
+        ext = words(shape)
+        for rule in rules[:2] if shape[0] > 64 else rules:
+            for topology in Topology:
+                for code in (0, 3):
+                    for g in gs:
+                        hold(ext, g, rule, topology, code)
+    ext = words((256, 1056, 32))
+    for g in (1, 3, 16):
+        hold(ext, g, CONWAY, Topology.TORUS, 0)
+    # a glider crossing the column-32 word seam and the torus seams: 256
+    # generations move it (64, 64) cells, on a 64-row torus a pure shift
+    for top, left in [(0, 29), (60, 125)]:
+        start = seeds.seeded((64, 128), "glider", top, left)
+        p = bitpack.pack(torch.from_numpy(start).to(rng.device))[None]
+        got = multi_step_kernel_batched(p, 256, rule=CONWAY)
+        moved = bitpack.unpack(got[0]).cpu().numpy()
+        check((moved == np.roll(start, 64, axis=1)).all(),
+              f"glider from ({top}, {left}) did not return shifted through B2")
+        cases += 1
+    print(f"B2 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
+          f"max_abs_err {worst}")
+    return worst
+
+
+def serve_phase(cs, card: str) -> dict:
+    """Phase 3 for B2: the session service at full size on the card.
+    Returns the launches and the timed request's figures."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.models.rules import parse_rule
+    from gameoflifewithactors_torch.obs.registry import MetricsRegistry
+    from gameoflifewithactors_torch.ops import bitpack
+    from gameoflifewithactors_torch.ops.packed import multi_step_packed
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.serve import (AdmissionController,
+                                                  SessionService)
+
+    h, w = LANE_SHAPE
+    families = [  # (spec, sessions, first rng_seed)
+        ({"rule": "B3/S23", "height": h, "width": w, "topology": "torus"},
+         LANE_SESSIONS, 0),
+        ({"rule": "B36/S23", "height": h, "width": w, "topology": "dead"},
+         DEAD_SESSIONS, LANE_SESSIONS),
+        ({"rule": "B3/S23", "height": MAIN_SHAPE[0], "width": MAIN_SHAPE[1],
+          "topology": "torus"}, 1, LANE_SESSIONS + DEAD_SESSIONS),
+    ]
+    reg = MetricsRegistry()
+    svc = SessionService(registry=reg, admission=AdmissionController(
+        registry=reg))
+    check(svc.device.type == "cuda", f"service on {svc.device}")
+    reset_launches(cs)
+    sessions = []   # (sid, spec, rng_seed, generations)
+    for spec, count, first in families:
+        for i in range(first, first + count):
+            info = svc.create(f"tenant{i % 4}", spec, fill=0.35, rng_seed=i)
+            check(info["spec"]["backend"] == "cuda",
+                  f"auto picked {info['spec']['backend']!r} for {spec}")
+            sessions.append([info["sid"], spec, i, 0])
+    lanes = svc.lane_stats()
+    check(sorted(ln["capacity"] for ln in lanes) == [1, DEAD_SESSIONS,
+                                                     LANE_SESSIONS],
+          f"lanes {lanes}")
+    # mixed cursors: even sessions owe 8 generations, odd ones 13 (the
+    # single session 13), then 2000 each in one request per session
+    g = cs.DEFAULT_GENS_PER_CALL
+    for k, sess in enumerate(sessions):
+        n = 13 if k % 2 or sess[1]["height"] == MAIN_SHAPE[0] else 8
+        svc.step(sess[0], n, pump=False)
+        sess[3] += n
+    d1 = svc.pump()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for sess in sessions:
+        svc.step(sess[0], SERVE_GENERATIONS, pump=False)
+        sess[3] += SERVE_GENERATIONS
+    d2 = svc.pump()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end)
+    counts = launches(cs)
+    # planned: per lane, the 8-generation dispatch and the 5 more the
+    # 13-step sessions owe (the single session: one of 13), then 2000
+    planned = [[8, 5], [8, 5], [13]]
+    expected = sum(math.ceil(n / g) for plan in planned
+                   for n in plan + [SERVE_GENERATIONS])
+    check(d1 == 5 and d2 == 3, f"pump dispatches {d1}, {d2}; expected 5, 3")
+    check(counts["life_slab"] == expected,
+          f"serving launched life_slab {counts['life_slab']} times, planned "
+          f"{expected}")
+    check(all(v == 0 for k, v in counts.items() if k != "life_slab"),
+          f"serving launched another kernel: {counts}")
+    cells = sum(s[1]["height"] * s[1]["width"] for s in sessions)
+    rate = cells * SERVE_GENERATIONS / wall
+    print(f"serving main path: {len(sessions)} sessions in {len(lanes)} lanes "
+          f"(capacities {sorted(ln['capacity'] for ln in lanes)}), cursors 8/13 "
+          f"then {SERVE_GENERATIONS} generations per session, {d1} + {d2} "
+          f"dispatches, {counts['life_slab']} life_slab launches == planned, "
+          f"no other kernel")
+    print(f"serving timed: {SERVE_GENERATIONS} generations of {cells} cells "
+          f"in {len(sessions)} requests + one pump ({d2} dispatches): "
+          f"{wall:.4f} s host clock incl. sync, {device_ms / 1e3:.4f} s "
+          f"between CUDA events, {rate:.4e} cell-updates/s  [{card}]")
+
+    # every session against its own dedicated engine on the card, and a
+    # sample against the plain packed stepper
+    lane_of = {}
+    for sid, spec, seed, gens in sessions:
+        info = svc.info(sid)
+        check(info["generation"] == gens and info["pending_steps"] == 0,
+              f"{sid}: {info}")
+        lane = svc.pools[info["family"]].lanes[info["lane"]]
+        lane_of[sid] = (lane, info["slot"])
+        engine = Engine(seed_cells((spec["height"], spec["width"]), seed),
+                        spec["rule"], topology=Topology(spec["topology"]),
+                        backend="cuda")
+        engine.step(gens)
+        check(torch.equal(lane.state[info["slot"]], engine.state),
+              f"session {sid} ({spec['rule']} {spec['topology']}, seed {seed}) "
+              "differs from its dedicated Engine run")
+    for sid, spec, seed, gens in [sessions[1], sessions[LANE_SESSIONS]]:
+        plain = multi_step_packed(
+            bitpack.pack(torch.from_numpy(seed_cells(LANE_SHAPE, seed)).cuda()),
+            gens, rule=parse_rule(spec["rule"]), topology=Topology(spec["topology"]))
+        lane, slot = lane_of[sid]
+        check(torch.equal(lane.state[slot], plain),
+              f"session {sid} differs from the plain packed stepper")
+    print(f"serving results: all {len(sessions)} sessions == their dedicated "
+          "Engine(backend='cuda') runs; 2 == the plain packed stepper")
+
+    # closes: a quarter of the 256 sessions leaves plan(192) = [256] and
+    # moves nothing, so close three quarters: the last close repacks the
+    # 64 survivors into a 64-slot lane, slot by slot on the card
+    top = sessions[:LANE_SESSIONS]
+    before = {sid: lane_of[sid][0].state[lane_of[sid][1]].clone()
+              for sid, *_ in top[::4]}
+    pool = next(p for p in svc.pools.values() if p.family.height == h
+                and p.family.topology is Topology.TORUS)
+    compactions = pool.compactions
+    for k, (sid, *_) in enumerate(top):
+        if k % 4:
+            svc.close(sid)
+    check(pool.compactions == compactions + 1 and [
+        ln.capacity for ln in pool.lanes.values()] == [64],
+        f"closes left lanes {pool.stats()}")
+    for sid, words in before.items():
+        info = svc.info(sid)
+        lane = pool.lanes[info["lane"]]
+        check(torch.equal(lane.state[info["slot"]], words),
+              f"compaction changed session {sid}")
+    print(f"serving compaction: {LANE_SESSIONS - len(before)} of "
+          f"{LANE_SESSIONS} closed, {len(before)} survivors repacked into a "
+          f"{len(before)}-slot lane bit-identically")
+    return {"launches": counts["life_slab"], "wall": wall,
+            "device_ms": device_ms, "dispatches": d2, "rate": rate,
+            "cells": cells}
+
+
+def start_server(repo: str, build_dir: str) -> subprocess.Popen:
+    """``python -m gameoflifewithactors_torch serve`` on the card, on an
+    ephemeral port."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "gameoflifewithactors_torch", "serve",
+         "--port", "0", "--flight-dump",
+         os.path.join(build_dir, "chip_smoke_serve.flight.jsonl")],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def drive_server(proc: subprocess.Popen) -> None:
+    """Phase 3: the server started by :func:`start_server` over HTTP, its
+    grid held against the same session run in-process, then SIGTERM."""
+    import signal
+    import urllib.request
+
+    from gameoflifewithactors_torch.serve import SessionService
+
+    def req(port, method, path, body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data, method=method),
+            timeout=120)
+        raw = r.read().decode()
+        return r.status, (json.loads(raw) if r.headers.get(
+            "Content-Type", "").startswith("application/json") else raw)
+
+    spec = {"rule": "B3/S23", "height": 256, "width": 256, "topology": "torus"}
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("SERVE_PORT "), f"serve announced {line!r}")
+        port = int(line.split()[1])
+        code, info = req(port, "POST", "/sessions", {
+            "tenant": "smoke", "spec": spec, "fill": 0.35, "rng_seed": 5})
+        check(code == 201 and info["spec"]["backend"] == "cuda", f"{code} {info}")
+        code, info = req(port, "POST", f"/sessions/{info['sid']}/step", {"n": 100})
+        check(code == 200 and info["generation"] == 100, f"{code} {info}")
+        code, grid = req(port, "GET", f"/sessions/{info['sid']}/grid")
+        local = SessionService()
+        sid = local.create("smoke", spec, fill=0.35, rng_seed=5)["sid"]
+        local.step(sid, 100)
+        check(code == 200 and grid["cells_hex"] == local.grid_hex(sid)["cells_hex"],
+              "served grid differs from the same session run in-process")
+        code, info = req(port, "DELETE", f"/sessions/{info['sid']}")
+        check(code == 200 and info["state"] == "closed", f"{code} {info}")
+        code, health = req(port, "GET", "/healthz")
+        check(code == 200 and health["ok"], f"{code} {health}")
+        code, text = req(port, "GET", "/metrics")
+        check(code == 200 and 'goltpu_session_steps_total{tenant="smoke"} 100'
+              in text, "metrics lack the session's steps")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"serve exited {rc} on SIGTERM: {proc.stderr.read()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("serve entry point on the card: SERVE_PORT, create/step/grid "
+          "(== in-process)/delete/healthz/metrics over HTTP, SIGTERM exit 0")
 
 
 def main() -> int:
@@ -221,6 +499,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s: {what} done]")
+
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     from gameoflifewithactors_torch import GridCoordinator, _build
@@ -261,6 +543,7 @@ def main() -> int:
         else:
             print(f"  sass: {total} instructions; shortest shared-memory "
                   f"loop {loop} instructions, {lop3} of them LOP3")
+    stamp("the build")
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
     rng.manual_seed(0)
@@ -300,6 +583,8 @@ def main() -> int:
             cases += 1
     print(f"B1 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
           f"max_abs_err {worst['life_packed']}")
+    worst["life_slab"] = check_slab_kernel(cs, bitpack, seeds, rules, rng,
+                                           CONWAY, Topology)
 
     cases = 0
     for name in ["brain", "starwars", "belzhab", "B2/S34/C5", "B3/S23/C256"]:
@@ -345,6 +630,8 @@ def main() -> int:
                     cases += 1
     print(f"B4 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
           f"max_abs_err {worst['life_ltl']}")
+
+    stamp("the kernels against their plain versions")
 
     # -- 3. the main paths ---------------------------------------------------
     main_launches = {}
@@ -403,17 +690,19 @@ def main() -> int:
               f"cell-updates/s  [{card}]")
         del coord, start_state, want, frames
 
+    # the entry points in subprocesses, all started at once (each takes
+    # seconds to reach the card) while nothing is timed: the CLI for each
+    # family and the session server
     def cli(*args):
-        out = subprocess.run([sys.executable, "-m", "gameoflifewithactors_torch",
-                              *args], cwd=repo, capture_output=True, text=True,
-                             timeout=300)
-        check(out.returncode == 0, f"CLI {args} exited {out.returncode}: {out.stderr}")
-        return out.stdout.splitlines()[-1]
+        return subprocess.Popen([sys.executable, "-m", "gameoflifewithactors_torch",
+                                 *args], cwd=repo, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
 
-    line = cli("--grid", "64x64", "--seed", "glider", "--steps", "10",
-               "--render", "final", "--population")
-    check(line.endswith("pop 5"), "CLI output: " + line)
-    print("CLI on the card:", line)
+    def last_line(proc):
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"CLI {proc.args} exited {proc.returncode}: {err}")
+        return out.splitlines()[-1]
+
     # the same seed on the card and on the CPU: a numpy soup as an RLE file
     # beside the kernels' builds (the random fill draws from each device's
     # own generator)
@@ -422,13 +711,28 @@ def main() -> int:
     with open(soup, "w") as f:
         f.write(seeds.to_rle(
             (np.random.default_rng(7).random((64, 64)) < 0.4).astype(np.uint8)))
+    server = start_server(repo, _build.BUILD_DIR)
+    glider = cli("--grid", "64x64", "--seed", "glider", "--steps", "10",
+                 "--render", "final", "--population")
+    runs = {}
     for spec in ["brain", "bosco"]:
         args = ("--rule", spec, "--grid", "96x128", "--seed", "@" + soup,
                 "--steps", "12", "--render", "final", "--population")
-        on_card, on_cpu = cli(*args), cli(*args, "--device", "cpu")
+        runs[spec] = (cli(*args), cli(*args, "--device", "cpu"))
+    line = last_line(glider)
+    check(line.endswith("pop 5"), "CLI output: " + line)
+    print("CLI on the card:", line)
+    for spec, (card_run, cpu_run) in runs.items():
+        on_card, on_cpu = last_line(card_run), last_line(cpu_run)
         check(on_card == on_cpu and re.search(r"gen 12 .*pop [1-9]", on_card),
               f"CLI --rule {spec}: card {on_card!r} vs cpu {on_cpu!r}")
         print(f"CLI --rule {spec} on the card: {on_card} (== --device cpu)")
+    drive_server(server)
+    stamp("the main paths and the entry points")
+
+    serving = serve_phase(cs, card)
+    main_launches["life_slab"] = serving["launches"]
+    stamp("the serving main path")
 
     # -- 4. timing at the main path's shape ------------------------------------
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -468,6 +772,66 @@ def main() -> int:
         sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B1 sweep:", "; ".join(sweep), f" [{card}]")
     rows.append(("life_packed", 160, ms, plain_ms, bound_ms, ops_ms >= bytes_ms))
+
+    # B2 at the serving shapes: a full lane of 1024^2 sessions, the DEAD
+    # family's 64-slot lane and the 16384^2 session's band, at g = 8
+    from gameoflifewithactors_torch.parallel.batched import \
+        multi_step_kernel_batched
+    g = cs.DEFAULT_GENS_PER_CALL
+    slab_ms = {}
+    for batch, (bh, bw), rule, topology in [
+            (LANE_SESSIONS, LANE_SHAPE, CONWAY, Topology.TORUS),
+            (DEAD_SESSIONS, LANE_SHAPE, parse_rule("B36/S23"), Topology.DEAD),
+            (1, MAIN_SHAPE, CONWAY, Topology.TORUS)]:
+        lane = torch.stack([bitpack.pack(seeds.bernoulli(rng, (bh, bw), 0.35))
+                            for _ in range(batch)])
+        code = 3 if topology is Topology.DEAD else 0
+        ext = torch.cat([lane[:, -g:], lane, lane[:, :g]], dim=1)
+        He, Wq = ext.shape[1:]
+        t = timed_ms(lambda: cs.slab_step_kernel(
+            ext, g, rule=rule, topology=topology, edge_code=code), 50)
+        chunk = timed_ms(lambda: multi_step_kernel_batched(
+            lane, g * 20, np.ones(batch, np.uint32), rule=rule,
+            topology=topology), 1) / 20
+        b_ms, by_ms, op_ms = bound(2 * batch * He * Wq * 4,
+                                   g * batch * He * Wq * ops_per_word(rule))
+        slab_ms[(batch, bh)] = t
+        cu = batch * bh * bw * g / (t / 1e3)
+        print(f"B2 kernel {batch} x {bh}x{bw} {rule.notation} {topology.value} "
+              f"(ext {He}x{Wq} words) g={g} "
+              f"code={code}: {t:.5f} ms/launch, {cu:.4e} cell-updates/s; bound "
+              f"{b_ms:.5f} ms (bytes {by_ms:.5f}, ops {op_ms:.5f}); lane chunk "
+              f"(exchange + B2 + crop and mask select) {chunk:.5f} ms  [{card}]")
+        if batch == LANE_SESSIONS:
+            slab_row = (t, b_ms, op_ms >= by_ms, ext)
+        del lane, ext
+    t, b_ms, by_ops, ext = slab_row
+    plain_ms = timed_ms(lambda: cs.slab_step_reference(ext, g, rule=CONWAY), 3)
+    print(f"B2 plain version (slab_step_reference, no yardstick) at "
+          f"{LANE_SESSIONS} x {LANE_SHAPE[0]}^2: {plain_ms:.4f} ms/launch  [{card}]")
+    sweep = []
+    for gs in (4, 8, 16):   # bands with a gs-row halo: cut or widen ext
+        e = (ext[:, g - gs:ext.shape[1] - g + gs] if gs <= g else torch.cat(
+            [ext[:, -(gs - g):], ext, ext[:, :gs - g]], dim=1)).contiguous()
+        tt = timed_ms(lambda: cs.slab_step_kernel(e, gs, rule=CONWAY), 20)
+        sweep.append(f"g={gs}: {tt / gs * 1e3:.2f} us/gen")
+    print(f"B2 sweep ({LANE_SESSIONS} x {LANE_SHAPE[0]}^2 lane):", "; ".join(sweep),
+          f" [{card}]")
+    stamp("timing B1 and B2")
+    rows.append(("life_slab", 748, t, plain_ms, b_ms, by_ops))
+    kernel_ms = sum(
+        n * slab_ms[key] for key, n in [
+            ((LANE_SESSIONS, LANE_SHAPE[0]), SERVE_GENERATIONS // g),
+            ((DEAD_SESSIONS, LANE_SHAPE[0]), SERVE_GENERATIONS // g),
+            ((1, MAIN_SHAPE[0]), SERVE_GENERATIONS // g)])
+    extra = (serving["wall"] * 1e3 - kernel_ms) / serving["dispatches"]
+    print(f"serving breakdown: {serving['dispatches']} dispatches of "
+          f"{SERVE_GENERATIONS} generations, B2 device time "
+          f"{kernel_ms:.3f} ms of {serving['wall'] * 1e3:.3f} ms host clock; "
+          f"{extra:.3f} ms per dispatch beyond the kernel's device time "
+          f"({extra * serving['dispatches'] / (serving['wall'] * 1e3):.1%} of the "
+          f"request)  [{card}]")
+    del ext, slab_row
 
     # B3: Brian's Brain
     brain = parse_any("brain")

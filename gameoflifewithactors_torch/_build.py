@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain ``extern "C"`` interface and loaded with
 :mod:`ctypes`; :func:`build_all` compiles several at once, one ``nvcc``
 each. Libraries go to ``_build/`` beside this file, named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Importing this module needs no ``nvcc``; a build that
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Importing this module needs no ``nvcc``; a build that
 fails raises with the compiler's output.
 """
 
@@ -62,9 +62,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` for the current source lives."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` for the current source (and
+    the current ``csrc/*.cuh`` headers it may include) lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(src.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

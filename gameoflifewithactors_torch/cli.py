@@ -3,7 +3,9 @@
 ``python -m gameoflifewithactors_torch --grid 1024x1024 --seed random
 --steps 1000 --population`` runs the stack: config → coordinator → tick
 scheduler → renderer/metrics, on the GPU unless ``--device cpu``.
-Counterpart of ``gameoflifewithactors_tpu.cli`` for the ported flags.
+``python -m gameoflifewithactors_torch serve ...`` starts the session
+service (:mod:`.serve.frontend`). Counterpart of
+``gameoflifewithactors_tpu.cli`` for the ported flags and subcommands.
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ from .utils.render import ConsoleRenderer
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(argv) if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # multi-tenant session service: live grid sessions on batched
+        # lanes behind an HTTP/JSON API
+        from .serve.frontend import main as serve_main
+
+        return serve_main(argv[1:])
     cfg, args = from_args(argv)
     coordinator, scheduler = cfg.build()
 

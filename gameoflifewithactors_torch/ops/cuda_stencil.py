@@ -12,7 +12,13 @@ Counterpart of the full-grid kernels of
   (:func:`multi_step_generations_kernel`, ``csrc/life_generations.cu``);
 - B4, ``_make_ltl_kernel`` / ``multi_step_ltl_pallas``: a binary
   radius-r Larger-than-Life rule on a packed grid
-  (:func:`multi_step_ltl_kernel`, ``csrc/life_ltl.cu``).
+  (:func:`multi_step_ltl_kernel`, ``csrc/life_ltl.cu``);
+
+and of B2, ``_make_kernel`` in slab mode with ``dead_band`` /
+``make_pallas_slab_step``: one launch of ``g`` generations on a batch of
+halo-extended full-width row bands (:func:`slab_step_kernel`,
+``csrc/life_slab.cu``), the step of the batched lane runners in
+:mod:`..parallel.batched`.
 
 One launch advances ``g`` generations: each CUDA block loads its tile plus
 a halo (``g`` rows and one word per side for the 3x3 kernels, ``r*g`` rows
@@ -51,14 +57,23 @@ DEFAULT_GENERATIONS_GENS_PER_CALL = 16
 DEFAULT_LTL_GENS_PER_CALL = 2
 DEFAULT_LTL_TILE = (128, 32)
 MAX_LTL_BOUNDS = 32       # interval boundaries per set the LtL kernel takes
+# B2's tile keeps B1's 4096 words but is no wider than the band (a lane of
+# 1024-cell rows is 32 words wide), with about 256 rows at most; its rows
+# are then evened out so that the row tiles split the band evenly (a
+# 1040-row band takes 8 tiles of 130 rows, not 9 of 128 with 112 rows
+# computed beyond the band)
+_SLAB_TILE_WORDS = DEFAULT_TILE[0] * DEFAULT_TILE[1]
+_SLAB_MAX_TILE_ROWS = 256
 _SMEM_LIMIT = 232448      # bytes of shared memory one Hopper block may use
 _MAX_GRID_Y = 65535
+_MAX_GRID_Z = 65535
 
 # Launches of each CUDA kernel in this process: its wrapper adds one per
 # launch, nothing else touches them except a caller resetting them to 0.
 KERNEL_LAUNCHES = 0        # B1, life_packed
 GENERATIONS_LAUNCHES = 0   # B3, life_generations
 LTL_LAUNCHES = 0           # B4, life_ltl
+SLAB_LAUNCHES = 0          # B2, life_slab
 
 _libs: dict = {}
 
@@ -148,6 +163,38 @@ def _resolve_ltl(rule: LtLRule, gens_per_call: Optional[int],
     return g, th, tw
 
 
+def _slab_smem(g: int):
+    return lambda th, tw: 2 * (th + 2 * g) * (tw + 4) * 4   # as B1's slabs
+
+
+def _resolve_slab(gens: int, He: int, Wp: int,
+                  tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """(g, th, tw) of the B2 kernel for ``(He, Wp)`` bands."""
+    g = _depth(gens, DEFAULT_GENS_PER_CALL)
+    if tile is None:
+        tw = max(1, min(DEFAULT_TILE[1], Wp))
+        th = min(_SLAB_MAX_TILE_ROWS, _SLAB_TILE_WORDS // tw)
+        tile = (-(-He // max(1, round(He / th))), tw)
+    th, tw = _checked_tile(tile, _slab_smem(g), f"{g} generations per call")
+    return g, th, tw
+
+
+def supported_slab(shape, gens: int, *, batch: int = 1,
+                   tile: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether the B2 kernel takes ``batch`` halo-extended ``(He, Wp)``
+    bands at ``gens`` generations per launch: 1..32 generations, a tile
+    that fits in shared memory, and a launch grid of at most 65535 row
+    tiles and 65535 bands."""
+    He, Wp = shape
+    if He < 1 or Wp < 1 or not 1 <= batch <= _MAX_GRID_Z:
+        return False
+    try:
+        _, th, _ = _resolve_slab(gens, He, Wp, tile)
+    except ValueError:
+        return False
+    return -(-He // th) <= _MAX_GRID_Y
+
+
 def supported(shape, *, tile: Optional[Tuple[int, int]] = None) -> bool:
     """Whether the B/S kernel takes a packed ``(H, Wp)`` grid: any non-empty
     shape whose row tiles fit the launch grid (modulo indexing handles
@@ -212,38 +259,41 @@ def _check(p: torch.Tensor, dims: int = 2) -> None:
 # -- plain versions ----------------------------------------------------------
 
 
+def _tile_index(n: int, t: int, halo: int, device) -> torch.Tensor:
+    """``(ceil(n/t), t + 2*halo)``: the grid index of every slab position of
+    every tile along one axis (negative or past ``n`` in the halo)."""
+    return (torch.arange(-(-n // t), device=device) * t)[:, None] - halo \
+        + torch.arange(t + 2 * halo, device=device)
+
+
 def _tiles(p: torch.Tensor, hr: int, hw: int, th: int, tw: int,
-           topology: Topology):
+           topology: Topology, rows: Optional[Topology] = None):
     """Every block's slab at once: ``(..., nty, ntx, th + 2*hr, tw + 2*hw)``
-    words gathered with the kernel's indexing (rows and words modulo the
-    grid for TORUS; zeros outside it for DEAD), with the in-grid row and
-    word masks for DEAD (None for TORUS)."""
+    words gathered with the kernel's indexing (modulo the grid along an axis
+    that wraps; zeros outside it along a DEAD one), with the in-grid
+    ``(row, word)`` masks (None for an axis that wraps). ``topology`` closes
+    both axes unless ``rows`` closes the row axis (the B2 band reads zeros
+    above and below itself whatever its horizontal closure)."""
     H, Wp = p.shape[-2:]
-    nty, ntx = -(-H // th), -(-Wp // tw)
-    dev = p.device
-    rows = (torch.arange(nty, device=dev) * th)[:, None] - hr \
-        + torch.arange(th + 2 * hr, device=dev)           # (nty, L) grid rows
-    cols = (torch.arange(ntx, device=dev) * tw)[:, None] - hw \
-        + torch.arange(tw + 2 * hw, device=dev)           # (ntx, ww) grid words
-    if topology is Topology.DEAD:
-        row_in = (rows >= 0) & (rows < H)
-        col_in = (cols >= 0) & (cols < Wp)
-        slab = p[..., rows.clamp(0, H - 1)[:, None, :, None],
-                 cols.clamp(0, Wp - 1)[None, :, None, :]]
-        inside = row_in[:, None, :, None] & col_in[None, :, None, :]
-        return torch.where(inside, slab, 0), (row_in, col_in)
-    return p[..., (rows % H)[:, None, :, None], (cols % Wp)[None, :, None, :]], None
+    r = _tile_index(H, th, hr, p.device)      # (nty, L) grid rows
+    c = _tile_index(Wp, tw, hw, p.device)     # (ntx, ww) grid words
+    row_in = (r >= 0) & (r < H) if (rows or topology) is Topology.DEAD else None
+    col_in = (c >= 0) & (c < Wp) if topology is Topology.DEAD else None
+    slab = p[..., (r % H)[:, None, :, None], (c % Wp)[None, :, None, :]]
+    return _rezero(slab, (row_in, col_in), 0), (row_in, col_in)
 
 
 def _rezero(slab: torch.Tensor, masks, shrunk: int) -> torch.Tensor:
-    """DEAD: zero the slab's rows and words outside the grid, ``shrunk``
-    rows per side having been consumed so far."""
-    if masks is None:
-        return slab
+    """Zero the slab's rows and words outside their ``(row, word)`` masks
+    (None: keep the axis), ``shrunk`` rows per side having been consumed
+    so far."""
     row_in, col_in = masks
-    L = row_in.shape[1]
-    inside = row_in[:, None, shrunk:L - shrunk, None] & col_in[None, :, None, :]
-    return torch.where(inside, slab, 0)
+    if row_in is not None:
+        L = row_in.shape[1]
+        slab = torch.where(row_in[:, None, shrunk:L - shrunk, None], slab, 0)
+    if col_in is not None:
+        slab = torch.where(col_in[None, :, None, :], slab, 0)
+    return slab
 
 
 def _untile(slab: torch.Tensor, hw: int, tw: int, H: int, Wp: int) -> torch.Tensor:
@@ -345,6 +395,53 @@ def multi_step_ltl_reference(
     return p
 
 
+def _slab_launch_reference(ext: torch.Tensor, gens: int, rule: Rule,
+                           topology: Topology, edge_code: int, th: int,
+                           tw: int) -> torch.Tensor:
+    """One B2 launch in plain torch: every tile of every band at once. Rows
+    outside the band load as zeros and then evolve freely; the dead band
+    (extended rows < ``gens`` under edge-code bit 0, >= ``He - gens``
+    under bit 1) and, for DEAD, the words outside the grid are zeroed
+    before every generation."""
+    He, Wp = ext.shape[-2:]
+    slab, (_, col_in) = _tiles(ext, gens, 1, th, tw, topology,
+                               rows=Topology.DEAD)
+    r = _tile_index(He, th, gens, ext.device)
+    live_rows = None
+    if edge_code:
+        top = gens if edge_code & 1 else -He - gens
+        bottom = He - gens if edge_code & 2 else 2 * He + gens
+        live_rows = (r >= top) & (r < bottom)
+    for k in range(gens):
+        slab = step_packed_slab(_rezero(slab, (live_rows, col_in), k), rule,
+                                Topology.DEAD)
+    return _untile(slab, 1, tw, He, Wp)
+
+
+def _check_slab(ext: torch.Tensor, edge_code: int) -> None:
+    _check(ext, dims=3)
+    if int(edge_code) not in (0, 1, 2, 3):
+        raise ValueError(
+            f"edge_code is bit 0 (top band) | bit 1 (bottom band), got {edge_code}")
+
+
+def slab_step_reference(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: Rule,
+    topology: Topology = Topology.TORUS,
+    edge_code: int = 0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One B2 launch, ``gens`` generations of the ``(B, He, W/32)`` batch of
+    halo-extended bands, by the kernel's algorithm in plain torch on any
+    device (see :func:`slab_step_kernel`)."""
+    _check_slab(ext, edge_code)
+    g, th, tw = _resolve_slab(gens, ext.shape[1], ext.shape[2], tile)
+    return _slab_launch_reference(ext, g, rule, topology, int(edge_code), th, tw)
+
+
 def _check_generations(planes: torch.Tensor, rule: GenRule) -> None:
     _check(planes, dims=3)
     if planes.shape[0] != n_planes(rule.states):
@@ -431,6 +528,17 @@ def _launch_ltl(lib, src, dst, gens, rule: LtLRule, topology, th, tw):
         int(topology is Topology.DEAD), _stream(src))
     _raise_on(lib, "life_ltl", err)
     LTL_LAUNCHES += 1
+
+
+def _launch_slab(lib, src, dst, gens, rule: Rule, topology, edge_code, th, tw):
+    global SLAB_LAUNCHES
+    B, He, Wp = src.shape
+    err = lib.life_slab_launch(
+        src.data_ptr(), dst.data_ptr(), B, He, Wp, gens, th, tw,
+        rule.birth_mask, rule.survive_mask, int(topology is Topology.DEAD),
+        int(edge_code), _stream(src))
+    _raise_on(lib, "life_slab", err)
+    SLAB_LAUNCHES += 1
 
 
 def _run(p: torch.Tensor, plan: List[int], launch) -> torch.Tensor:
@@ -554,3 +662,47 @@ def multi_step_ltl_kernel(
                                 _I, _P, _I, _P, _I, _P]) if plan else None
     return _run(p, plan, lambda src, dst, gens: _launch_ltl(
         lib, src, dst, gens, rule, topology, th, tw))
+
+
+def load_slab_kernel():
+    """The B2 kernel's library, built by ``nvcc`` first if needed."""
+    return _library("life_slab",
+                    [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _P])
+
+
+def slab_step_kernel(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: Rule,
+    topology: Topology = Topology.TORUS,
+    edge_code: int = 0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Advance a ``(B, He, W/32)`` int32 batch of halo-extended full-width
+    row bands by ``gens`` generations of a B/S rule: the counterpart of
+    ``make_pallas_slab_step`` (``dead_band`` is ``edge_code != 0``).
+
+    Rows outside ``[0, He)`` are zero at the start and evolve freely;
+    ``edge_code`` bit 0 (bit 1) zeroes the extended rows ``< gens`` (``>=
+    He - gens``) before every generation, the dead exterior of a band at
+    the grid's top (bottom) edge. ``topology`` is the horizontal closure.
+    The caller keeps rows ``[gens, He - gens)``.
+
+    On a CUDA tensor: one launch of the Hopper kernel over the whole batch
+    into a new tensor on the current stream. On a CPU tensor: the plain
+    version, :func:`slab_step_reference`. Any other device raises."""
+    _check_slab(ext, edge_code)
+    g, th, tw = _resolve_slab(gens, ext.shape[1], ext.shape[2], tile)
+    if ext.device.type == "cpu":
+        return _slab_launch_reference(ext, g, rule, topology, int(edge_code),
+                                      th, tw)
+    _on_card(ext, supported_slab(ext.shape[1:], g, batch=ext.shape[0],
+                                 tile=(th, tw)),
+             f"band batch {tuple(ext.shape)} exceeds the slab kernel's launch "
+             f"grid at tile {(th, tw)}")
+    lib = load_slab_kernel()
+    out = torch.empty_like(ext)
+    with torch.cuda.device(ext.device):
+        _launch_slab(lib, ext, out, g, rule, topology, edge_code, th, tw)
+    return out

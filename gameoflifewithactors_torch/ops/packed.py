@@ -15,7 +15,7 @@ Two entry points, as in the reference:
 
 - :func:`step_packed` — whole-grid step with TORUS or DEAD boundary.
 - :func:`step_packed_ext` — step on a halo-extended ``(h+2, wp+2)`` tile
-  with no boundary logic.
+  (or a batch of them) with no boundary logic.
 """
 
 from __future__ import annotations
@@ -158,16 +158,16 @@ def count_bits(p: torch.Tensor, topology: Topology) -> List[torch.Tensor]:
 
 def count_bits_ext(ext: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(interior alive plane, count bit-planes) from a halo-extended
-    (h+2, wp+2) plane."""
-    h = ext.shape[0] - 2
-    mid = ext[:, 1:-1]
-    w = _shift_west(mid, ext[:, :-2])
-    e = _shift_east(mid, ext[:, 2:])
+    (..., h+2, wp+2) plane (leading dimensions are a batch)."""
+    h = ext.shape[-2] - 2
+    mid = ext[..., 1:-1]
+    w = _shift_west(mid, ext[..., :-2])
+    e = _shift_east(mid, ext[..., 2:])
     bits = _row_sum_bits(
         w, mid, e,
-        lambda plane: (plane[:h], plane[2:h + 2]),
-        lambda plane: plane[1:h + 1])
-    return mid[1:h + 1], bits
+        lambda plane: (plane[..., :h, :], plane[..., 2:h + 2, :]),
+        lambda plane: plane[..., 1:h + 1, :])
+    return mid[..., 1:h + 1, :], bits
 
 
 def step_packed(p: torch.Tensor, *, rule: Rule,
@@ -227,6 +227,7 @@ def neighbor_planes_ext(ext: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Ten
 
 
 def step_packed_ext(ext: torch.Tensor, rule: Rule) -> torch.Tensor:
-    """One generation on a halo-extended tile; returns the (h, wp) interior."""
+    """One generation on a halo-extended (..., h+2, wp+2) tile; returns the
+    (..., h, wp) interior."""
     alive, bits = count_bits_ext(ext)
     return apply_rule_planes(alive, bits, rule)

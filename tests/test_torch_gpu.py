@@ -1,6 +1,7 @@
-"""The CUDA kernels (B1 life_packed, B3 life_generations, B4 life_ltl) on a
-card: each against its plain version, bit for bit, and through the
-Engine's main paths. Each test skips without a CUDA device.
+"""The CUDA kernels (B1 life_packed, B2 life_slab, B3 life_generations, B4
+life_ltl) on a card: each against its plain version, bit for bit, and
+through the Engine's and the session service's main paths. Each test
+skips without a CUDA device.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest tests/test_torch_gpu.py``.
@@ -23,6 +24,7 @@ from gameoflifewithactors_torch.ops.packed_generations import (
 )
 from gameoflifewithactors_torch.ops.packed_ltl import multi_step_ltl_packed
 from gameoflifewithactors_torch.ops.stencil import Topology
+from gameoflifewithactors_torch.serve import SessionService, SpecFamily
 
 
 def _need_cuda():
@@ -168,3 +170,53 @@ def test_cuda_backend_refuses_what_no_kernel_takes():
                                  survive=(3, 5)), (64, 64))]:
         with pytest.raises(ValueError):
             Engine(np.zeros(shape, np.uint8), rule, backend="cuda")
+
+
+@pytest.mark.gpu
+def test_slab_kernel_matches_plain_version():
+    _need_cuda()
+    rng = np.random.default_rng(12)
+    for rule, topology in [("conway", "torus"), ("conway", "dead"),
+                           ("B0123478/S01234678", "torus"),
+                           ("B0123478/S01234678", "dead")]:
+        for shape in [(1, 40, 3), (8, 1040, 32), (2, 530, 64)]:
+            words = rng.integers(-2 ** 31, 2 ** 31, size=shape, dtype=np.int64)
+            ext = torch.from_numpy(words.astype(np.int32)).cuda()
+            for g, code, tile in [(1, 0, None), (3, 1, None), (8, 3, None),
+                                  (16, 2, None), (5, 3, (7, 3))]:
+                kwargs = dict(rule=parse_rule(rule), topology=Topology(topology),
+                              edge_code=code, tile=tile)
+                got = cuda_stencil.slab_step_kernel(ext, g, **kwargs)
+                want = cuda_stencil.slab_step_reference(ext, g, **kwargs)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (rule, shape, g, code, tile)
+
+
+@pytest.mark.gpu
+def test_cuda_lane_steps_n_generations_through_the_slab_kernel():
+    _need_cuda()
+    svc = SessionService(ladder=(1, 8), sleep_fn=lambda s: None)
+    spec = {"rule": "B3/S23", "height": 64, "width": 128, "topology": "dead"}
+    sids = [svc.create("t", spec, fill=0.35, rng_seed=i)["sid"] for i in range(5)]
+    assert svc.info(sids[0])["spec"]["backend"] == "cuda"
+    before = (cuda_stencil.SLAB_LAUNCHES, cuda_stencil.KERNEL_LAUNCHES)
+    for sid in sids:
+        svc.step(sid, 21, pump=False)
+    assert svc.pump() == 1
+    assert cuda_stencil.SLAB_LAUNCHES - before[0] == 3      # 8 + 8 + 5
+    assert cuda_stencil.KERNEL_LAUNCHES == before[1]
+    for i, sid in enumerate(sids):
+        cells = (np.random.default_rng(i).random((64, 128)) < 0.35).astype(np.uint8)
+        want = multi_step_packed(bitpack.pack(torch.from_numpy(cells)), 21,
+                                 rule=CONWAY, topology=Topology.DEAD)
+        np.testing.assert_array_equal(svc.grid(sid), bitpack.unpack(want).numpy())
+
+
+@pytest.mark.gpu
+def test_auto_lane_backend_is_the_kernel_on_the_card():
+    _need_cuda()
+    spec = {"rule": "B3/S23", "height": 1024, "width": 1024}
+    assert SpecFamily.from_spec(spec, "cuda").backend == "cuda"
+    assert SpecFamily.from_spec(dict(spec, height=4), "cuda").backend == "packed"
+    assert SpecFamily.from_spec(spec, "cpu").backend == "packed"
+

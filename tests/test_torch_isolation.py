@@ -45,7 +45,11 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not mod.name.endswith("__main__"):
         importlib.import_module(mod.name)
 for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
-             "ops.packed_generations", "ops.packed_ltl"):
+             "ops.packed_generations", "ops.packed_ltl", "obs.registry",
+             "obs.spans", "obs.compile", "obs.flight", "obs.exporter",
+             "obs.device", "resilience.supervisor", "parallel.halo",
+             "parallel.batched", "serve.session", "serve.admission",
+             "serve.lanes", "serve.service", "serve.frontend"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -59,7 +63,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(" ", 1)
-    assert int(count) >= 25   # every module, the rule families' included
+    assert int(count) >= 43   # every module: rule families, obs, serve, ...
     assert loaded.strip() == "[]"
 
 
