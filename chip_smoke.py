@@ -11,13 +11,20 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    inner loop).
 2. Each kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer words), over rules, topologies, shapes up to
-   16384², generations per call, edge codes and seam-crossing gliders.
+   16384², generations per call, edge codes (one per batch and one per
+   band) and seam-crossing gliders; the slab forms of B3 and B4 on
+   batches of 1, 4 and 8 bands, b = 2..8 planes, radii 1, 2 and 5 and a
+   diamond, and a 4-band 16384² batch each.
 3. The main paths, each driven with every kernel's launch count set to 0
    just before and read just after: three ``GridCoordinator`` runs at
    16384² with a 50% random soup under TORUS, held against the kernel's
    plain version from a copy of the start state -- B3/S23 (kernel B1),
-   Brian's Brain (B3) and Bosco (B4) -- then the CLI in a subprocess for
-   each rule family. Then the session service (kernel B2): a full
+   Brian's Brain (B3) and Bosco (B4); the same three on a mesh of four
+   row bands on this one card (B2, B3 slab, B4 slab: one slab launch per
+   chunk, no full-grid kernel), each held against its single-device run,
+   and the three on a flattened (2, 2) mesh under DEAD at 4096²; then the
+   CLI in a subprocess for each rule family, with and without ``--mesh
+   bands``. Then the session service (kernel B2): a full
    256-slot lane of 1024² B3/S23 TORUS sessions, 64 B36/S23 DEAD sessions
    and one 16384² session on mixed cursors through ``SessionService``,
    every grid held against its own dedicated ``Engine`` run, compaction
@@ -25,7 +32,9 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    HTTP in a subprocess.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
-   card could take, and a depth and tile sweep; the serving rate.
+   card could take, and a depth and tile sweep; the serving rate; the
+   slab kernels at the mesh's 4-band shapes, a mesh chunk (exchange,
+   launch, crop) beside its launch, and the mesh paths' rates.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -50,6 +59,8 @@ MAIN_SHAPE = (16384, 16384)
 MAIN_GENERATIONS = 300       # not a multiple of g: the shorter launch runs too
 MAIN_TICK = 100
 KERNELS = ("life_packed", "life_slab", "life_generations", "life_ltl")
+MESH_BANDS = 4               # the mesh main path: four row bands on one card
+MESH_DEAD_SHAPE = (4096, 4096)
 LANE_SHAPE = (1024, 1024)      # the serving sessions' grids
 LANE_SESSIONS = 256            # one full top-rung lane
 DEAD_SESSIONS = 64
@@ -169,28 +180,37 @@ def ltl_ops_per_word(rule) -> int:
 
 
 def sass_counts(so_path: str, nvcc: str):
-    """(SASS instructions in the library, instructions in its shortest loop
-    that both loads and stores shared memory -- a kernel's per-word,
-    per-generation row loop -- and the LOP3s among them), read with
-    ``cuobjdump`` beside ``nvcc``; the loop's counts are None where no such
-    loop is found."""
+    """(SASS instructions in the library, and for each kernel function its
+    shortest loop that both loads and stores shared memory -- a kernel's
+    per-word, per-generation row loop -- as (label, instructions, LOP3s)),
+    read with ``cuobjdump`` beside ``nvcc``. Each function's addresses
+    start at 0, so loops are found within one function at a time; the
+    label is the function's template arguments (``ILi2ELb1EE``: b = 2,
+    slab mode), or ``kernel`` for a function that has none."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    ins = [(int(a, 16), t.strip()) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
-    loop = lop3 = None
-    for addr, text in ins:
-        m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
-        if not m or int(m.group(1), 16) >= addr:
-            continue
-        body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
-        if (any(re.search(r"\bLDS\b", t) for t in body)
-                and any(re.search(r"\bSTS\b", t) for t in body)):
-            if loop is None or len(body) < loop:
-                loop = len(body)
-                lop3 = sum("LOP3" in t for t in body)
-    return len(ins), loop, lop3
+    total, loops = 0, []
+    for chunk in re.split(r"Function : ", sass)[1:]:
+        name = chunk.split(None, 1)[0]
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+        total += len(ins)
+        best = None
+        for addr, text in ins:
+            m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            if (any(re.search(r"\bLDS\b", t) for t in body)
+                    and any(re.search(r"\bSTS\b", t) for t in body)):
+                if best is None or len(body) < best[0]:
+                    best = (len(body), sum("LOP3" in t for t in body))
+        if best is not None:
+            label = re.search(r"kernel(I\w*?EE)?E", name)
+            loops.append(((label.group(1) if label and label.group(1)
+                           else "kernel"),) + best)
+    return total, loops
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -215,14 +235,48 @@ def max_abs_err(a, b) -> int:
 
 def reset_launches(cs) -> None:
     cs.KERNEL_LAUNCHES = cs.GENERATIONS_LAUNCHES = cs.LTL_LAUNCHES = 0
-    cs.SLAB_LAUNCHES = 0
+    cs.SLAB_LAUNCHES = cs.GENERATIONS_SLAB_LAUNCHES = cs.LTL_SLAB_LAUNCHES = 0
 
 
 def launches(cs) -> dict:
     return {"life_packed": cs.KERNEL_LAUNCHES,
             "life_slab": cs.SLAB_LAUNCHES,
             "life_generations": cs.GENERATIONS_LAUNCHES,
-            "life_ltl": cs.LTL_LAUNCHES}
+            "life_ltl": cs.LTL_LAUNCHES,
+            "life_generations_slab": cs.GENERATIONS_SLAB_LAUNCHES,
+            "life_ltl_slab": cs.LTL_SLAB_LAUNCHES}
+
+
+def mesh_codes(batch: int, device):
+    """The per-band edge codes of ``batch`` row bands of one grid: 1 for
+    the top band, 2 for the bottom one, 0 between."""
+    import torch
+
+    codes = [0] * batch
+    codes[0] |= 1
+    codes[-1] |= 2
+    return torch.tensor(codes, dtype=torch.int32, device=device)
+
+
+def band_batch(grid, bands: int, depth: int, topology):
+    """``grid`` (``(H, Wp)`` words or a ``(b, H, Wp)`` plane stack) cut into
+    ``bands`` full-width row bands, each extended by ``depth`` rows of its
+    neighbours (wrapped under TORUS, zeros beyond the grid under DEAD): the
+    batch a mesh of ``bands`` positions on one device hands its slab
+    kernel."""
+    import torch
+
+    from gameoflifewithactors_torch.ops.stencil import Topology
+
+    if topology is Topology.TORUS:
+        ext = torch.cat([grid[..., -depth:, :], grid, grid[..., :depth, :]],
+                        dim=-2)
+    else:
+        zeros = torch.zeros_like(grid[..., :depth, :])
+        ext = torch.cat([zeros, grid, zeros], dim=-2)
+    h = grid.shape[-2] // bands
+    return torch.stack([ext[..., i * h:(i + 1) * h + 2 * depth, :]
+                        for i in range(bands)]).contiguous()
 
 
 def seed_cells(shape, seed: int, fill: float = 0.35) -> np.ndarray:
@@ -262,7 +316,7 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
         ext = words(shape)
         for rule in rules:
             for topology in Topology:
-                for code in range(4):
+                for code in [0, 1, 2, 3, mesh_codes(shape[0], rng.device)]:
                     for g in (1, 3, 8, 16):
                         hold(ext, g, rule, topology, code)
     # the serving shapes: lanes of 1024^2 sessions (g = 8 and the 13-step
@@ -279,6 +333,14 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     ext = words((256, 1056, 32))
     for g in (1, 3, 16):
         hold(ext, g, CONWAY, Topology.TORUS, 0)
+    # the mesh main path's batch: four bands of a 16384^2 grid, one code
+    # per band
+    grid = words(MAIN_SHAPE[:1] + (MAIN_SHAPE[1] // 32,))
+    for topology in Topology:
+        ext = band_batch(grid, MESH_BANDS, 8, topology)
+        hold(ext, 8, CONWAY, topology, mesh_codes(MESH_BANDS, rng.device)
+             if topology is Topology.DEAD else 0)
+    del grid, ext
     # a glider crossing the column-32 word seam and the torus seams: 256
     # generations move it (64, 64) cells, on a 64-row torus a pure shift
     for top, left in [(0, 29), (60, 125)]:
@@ -292,6 +354,176 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     print(f"B2 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
           f"max_abs_err {worst}")
     return worst
+
+
+def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
+    """Phase 2 for the slab forms of B3 and B4 against their plain
+    versions: batches of 1, 4 and 8 bands with one code per batch (0, 3)
+    and one per band, B3 at b = 2..8 planes and g in {1, 3, 16}, B4 at
+    radius 1, 2 and 5 and a diamond and g in {1, 2, 4}; then a 4-band
+    16384^2 batch each, at the mesh main path's depth. Returns the largest
+    error of each (0)."""
+    import torch
+
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=rng,
+                             device=rng.device, dtype=torch.int64).to(torch.int32)
+
+    worst = {"life_generations_slab": 0, "life_ltl_slab": 0}
+    cases = dict.fromkeys(worst, 0)
+
+    def hold(name, kernel, plain, ext, g, rule, topology, code):
+        got = kernel(ext, g, rule=rule, topology=topology, edge_code=code)
+        want = plain(ext, g, rule=rule, topology=topology, edge_code=code)
+        err = max_abs_err(got, want)
+        check(err == 0, f"{name} kernel != plain at {tuple(ext.shape)} "
+                        f"{rule.notation} {topology} g={g} code={code}")
+        worst[name] = max(worst[name], err)
+        cases[name] += 1
+
+    gen = ("life_generations_slab", cs.slab_step_generations_kernel,
+           cs.slab_step_generations_reference)
+    ltl = ("life_ltl_slab", cs.slab_step_ltl_kernel, cs.slab_step_ltl_reference)
+    for name in ["brain", "starwars", "B2/S345/C5", "B3/S23/C9", "B3/S23/C17",
+                 "B3/S23/C33", "B3/S23/C65", "B3/S23/C256"]:
+        rule = parse_any(name)
+        b = n_planes(rule.states)
+        for batch, rows, wp in [(1, 40, 3), (4, 72, 5), (8, 130, 33)]:
+            for g in (1, 3, 16):
+                ext = words((batch, b, rows + 2 * g, wp))
+                for topology in Topology:
+                    for code in (0, 3, mesh_codes(batch, rng.device)):
+                        hold(*gen, ext, g, rule, topology, code)
+    for name in ["R1,C0,M1,S2..3,B3..3", "R2,C0,M1,S9..16,B8..12", "bosco",
+                 "R2,C0,M0,S6..11,B6..9,NN"]:
+        rule = parse_any(name)
+        for batch, rows, wp in [(1, 40, 3), (4, 72, 5), (8, 130, 33)]:
+            for g in (1, 2, 4):
+                ext = words((batch, rows + 2 * rule.radius * g, wp))
+                for topology in Topology:
+                    for code in (0, 3, mesh_codes(batch, rng.device)):
+                        hold(*ltl, ext, g, rule, topology, code)
+    # the mesh main path's batches: four bands of a 16384^2 grid
+    wp = MAIN_SHAPE[1] // 32
+    brain, bosco = parse_any("brain"), parse_any("bosco")
+    g = cs.DEFAULT_GENERATIONS_GENS_PER_CALL
+    planes = words((2,) + MAIN_SHAPE[:1] + (wp,))
+    planes[1] &= ~planes[0]       # valid Brian's Brain states: no 3
+    for topology in Topology:
+        code = mesh_codes(MESH_BANDS, rng.device) \
+            if topology is Topology.DEAD else 0
+        hold(*gen, band_batch(planes, MESH_BANDS, g, topology), g, brain,
+             topology, code)
+    del planes
+    grid = words(MAIN_SHAPE[:1] + (wp,))
+    g = cs.DEFAULT_LTL_GENS_PER_CALL
+    for topology in Topology:
+        code = mesh_codes(MESH_BANDS, rng.device) \
+            if topology is Topology.DEAD else 0
+        hold(*ltl, band_batch(grid, MESH_BANDS, bosco.radius * g, topology),
+             g, bosco, topology, code)
+    del grid
+    for name in worst:
+        print(f"{name} kernel vs plain: {cases[name]} cases bit-identical "
+              f"(tolerance 0), max_abs_err {worst[name]}")
+    return worst
+
+
+MESH_PATHS = [  # (kernel, rule, family's default depth attribute)
+    ("life_slab", "B3/S23", "DEFAULT_GENS_PER_CALL"),
+    ("life_generations_slab", "brain", "DEFAULT_GENERATIONS_GENS_PER_CALL"),
+    ("life_ltl_slab", "bosco", "DEFAULT_LTL_GENS_PER_CALL"),
+]
+
+
+def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
+    """Phase 3 for the band runners: the three 16384^2 ``GridCoordinator``
+    main paths again, on a mesh of four row bands on this card, each held
+    against its single-device run from the same start (``single[rule]`` =
+    (start state, state after the main path, its population)); then the
+    three families under DEAD on a flattened (2, 2) mesh at 4096^2 against
+    the single-device kernels, all on the device ``dev``. Returns each slab
+    kernel's launches and the mesh paths' rates."""
+    import torch
+    from gameoflifewithactors_torch import Engine, GridCoordinator
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((MESH_BANDS, 1), [dev] * MESH_BANDS)
+    out = {}
+    for kernel, spec, depth_attr in MESH_PATHS:
+        g = getattr(cs, depth_attr)
+        start, after, pop = single[spec]
+        coord = GridCoordinator(MAIN_SHAPE, spec, random_fill=0.5, rng_seed=1,
+                                device=dev, mesh=mesh, backend="cuda",
+                                view_shape=(40, 80))
+        check(coord.engine.gens_per_exchange == g,
+              f"{spec} mesh chunk {coord.engine.gens_per_exchange}, not {g}")
+        check(torch.equal(coord.engine.state, start),
+              f"{spec} mesh start state differs from the single-device one")
+        frames = []
+        coord.subscribe(frames.append)
+        reset_launches(cs)
+        coord.run(MAIN_GENERATIONS, render_every=MAIN_TICK)
+        counts = launches(cs)
+        ticks = MAIN_GENERATIONS // MAIN_TICK
+        expected = ticks * math.ceil(MAIN_TICK / g)
+        check(counts[kernel] == expected,
+              f"{spec} mesh path launched {kernel} {counts[kernel]} times, "
+              f"expected one per chunk: {expected}")
+        check(all(v == 0 for k, v in counts.items() if k != kernel),
+              f"{spec} mesh path launched another kernel: {counts}")
+        check(len(frames) == ticks and frames[-1].grid.shape == (40, 80),
+              "subscribers did not see every tick's frame")
+        check(torch.equal(coord.engine.state, after),
+              f"{spec} mesh path state differs from the single-device run")
+        check(coord.population() == pop,
+              f"{spec} mesh path population {coord.population()} != {pop}")
+        print(f"mesh main path: GridCoordinator {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
+              f"{spec} 50% soup TORUS on {MESH_BANDS} row bands of {dev}, "
+              f"{MAIN_GENERATIONS} generations in {ticks} ticks, g={g}, "
+              f"{counts[kernel]} {kernel} launches (one per chunk), no "
+              f"full-grid kernel, state and population {pop} == the "
+              "single-device kernel run")
+        t0 = time.perf_counter()
+        coord.run(2000)
+        coord.engine.block_until_ready()
+        wall = time.perf_counter() - t0
+        rate = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
+        out[kernel] = {"launches": counts[kernel], "rate": rate}
+        print(f"mesh main path timed ({spec}): 2000 generations in one tick, "
+              f"{wall:.4f} s host clock incl. sync, {rate:.4e} cell-updates/s "
+              f"(single device: {single_rates[spec]:.4e}, ratio "
+              f"{rate / single_rates[spec]:.4f})  [{card}]")
+        del coord, frames
+
+    mesh22 = make_mesh((2, 2), [dev] * 4)
+    states = {"B3/S23": 2, "brain": 3, "bosco": 2}
+    for kernel, spec, depth_attr in MESH_PATHS:
+        g = getattr(cs, depth_attr)
+        cells = (np.random.default_rng(5).random(MESH_DEAD_SHAPE)
+                 * states[spec]).astype(np.uint8)
+        sharded = Engine(cells, spec, topology=Topology.DEAD, mesh=mesh22)
+        alone = Engine(cells, spec, topology=Topology.DEAD, backend="cuda",
+                       device=dev)
+        check(sharded.backend == "cuda", f"auto picked {sharded.backend}")
+        reset_launches(cs)
+        sharded.step(MAIN_GENERATIONS)
+        counts = launches(cs)
+        expected = math.ceil(MAIN_GENERATIONS / g)
+        check(counts[kernel] == expected and all(
+            v == 0 for k, v in counts.items() if k != kernel),
+            f"{spec} DEAD (2, 2) mesh launched {counts}, expected {expected} "
+            f"of {kernel}")
+        alone.step(MAIN_GENERATIONS)
+        check(torch.equal(sharded.state, alone.state),
+              f"{spec} DEAD (2, 2) mesh differs from the single-device run")
+        print(f"mesh DEAD: Engine {MESH_DEAD_SHAPE[0]}^2 {spec} on a flattened "
+              f"(2, 2) mesh (auto backend {sharded.backend}), "
+              f"{MAIN_GENERATIONS} generations, {counts[kernel]} {kernel} "
+              f"launches, population {sharded.population()} == the "
+              "single-device kernel run")
+    return out
 
 
 def serve_phase(cs, card: str) -> dict:
@@ -534,15 +766,13 @@ def main() -> int:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-        total, loop, lop3 = sass_counts(built.path, _build.find_nvcc())
+        total, loops = sass_counts(built.path, _build.find_nvcc())
         if name == "life_packed":
-            check(loop is not None, "no shared-memory loop found in B1's SASS")
-        if loop is None:
-            print(f"  sass: {total} instructions; no loop that both loads "
-                  "and stores shared memory found")
-        else:
-            print(f"  sass: {total} instructions; shortest shared-memory "
-                  f"loop {loop} instructions, {lop3} of them LOP3")
+            check(bool(loops), "no shared-memory loop found in B1's SASS")
+        print(f"  sass: {total} instructions; shortest shared-memory loop per "
+              "kernel function: " + ("; ".join(
+                  f"{label} {n} instructions, {lop3} LOP3"
+                  for label, n, lop3 in loops) or "none found"))
     stamp("the build")
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
@@ -630,12 +860,14 @@ def main() -> int:
                     cases += 1
     print(f"B4 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
           f"max_abs_err {worst['life_ltl']}")
+    worst.update(check_slab_forms(cs, rng, Topology, parse_any, n_planes))
 
     stamp("the kernels against their plain versions")
 
     # -- 3. the main paths ---------------------------------------------------
     main_launches = {}
     main_rates = {}
+    single = {}        # rule -> (start, state after the main path, population)
     paths = [
         ("life_packed", "B3/S23", cs.DEFAULT_GENS_PER_CALL,
          lambda s, n, rule: cs.multi_step_reference(s, n, rule=rule),
@@ -680,15 +912,23 @@ def main() -> int:
               f"50% soup TORUS, {MAIN_GENERATIONS} generations in {ticks} ticks, "
               f"backend {coord.engine.backend}, {counts[kernel]} {kernel} "
               f"launches, population {pop} == plain version")
+        single[spec] = (start_state, want, pop)
         t0 = time.perf_counter()
         coord.run(2000)
         coord.engine.block_until_ready()
         wall = time.perf_counter() - t0
         main_rates[kernel] = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
+        main_rates[spec] = main_rates[kernel]
         print(f"main path timed ({spec}): 2000 generations in one tick, "
               f"{wall:.4f} s host clock incl. sync, {main_rates[kernel]:.4e} "
               f"cell-updates/s  [{card}]")
         del coord, start_state, want, frames
+    stamp("the single-device main paths")
+    mesh = mesh_phase(cs, card, dev, single, main_rates)
+    for kernel in ("life_generations_slab", "life_ltl_slab"):
+        main_launches[kernel] = mesh[kernel]["launches"]
+    del single
+    stamp("the mesh main paths")
 
     # the entry points in subprocesses, all started at once (each takes
     # seconds to reach the card) while nothing is timed: the CLI for each
@@ -719,11 +959,17 @@ def main() -> int:
         args = ("--rule", spec, "--grid", "96x128", "--seed", "@" + soup,
                 "--steps", "12", "--render", "final", "--population")
         runs[spec] = (cli(*args), cli(*args, "--device", "cpu"))
+        runs[spec + " --mesh bands"] = (cli(*args, "--mesh", "bands"),
+                                        runs[spec][1])
     line = last_line(glider)
     check(line.endswith("pop 5"), "CLI output: " + line)
     print("CLI on the card:", line)
+    cpu_lines = {}
     for spec, (card_run, cpu_run) in runs.items():
-        on_card, on_cpu = last_line(card_run), last_line(cpu_run)
+        on_card = last_line(card_run)
+        if cpu_run not in cpu_lines:
+            cpu_lines[cpu_run] = last_line(cpu_run)
+        on_cpu = cpu_lines[cpu_run]
         check(on_card == on_cpu and re.search(r"gen 12 .*pop [1-9]", on_card),
               f"CLI --rule {spec}: card {on_card!r} vs cpu {on_cpu!r}")
         print(f"CLI --rule {spec} on the card: {on_card} (== --device cpu)")
@@ -731,7 +977,10 @@ def main() -> int:
     stamp("the main paths and the entry points")
 
     serving = serve_phase(cs, card)
-    main_launches["life_slab"] = serving["launches"]
+    # B2 runs on two main paths: the serving lanes and the B/S mesh
+    main_launches["life_slab"] = serving["launches"] + mesh["life_slab"]["launches"]
+    print(f"life_slab launches: {serving['launches']} serving + "
+          f"{mesh['life_slab']['launches']} on the B3/S23 mesh path")
     stamp("the serving main path")
 
     # -- 4. timing at the main path's shape ------------------------------------
@@ -771,7 +1020,8 @@ def main() -> int:
             p, gs * 50, rule=CONWAY, gens_per_call=gs, tile=tile), 1) / (50 * gs)
         sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B1 sweep:", "; ".join(sweep), f" [{card}]")
-    rows.append(("life_packed", 160, ms, plain_ms, bound_ms, ops_ms >= bytes_ms))
+    rows.append(("life_packed", "life_packed", 160, ms, plain_ms, bound_ms,
+                 ops_ms >= bytes_ms))
 
     # B2 at the serving shapes: a full lane of 1024^2 sessions, the DEAD
     # family's 64-slot lane and the 16384^2 session's band, at g = 8
@@ -818,7 +1068,7 @@ def main() -> int:
     print(f"B2 sweep ({LANE_SESSIONS} x {LANE_SHAPE[0]}^2 lane):", "; ".join(sweep),
           f" [{card}]")
     stamp("timing B1 and B2")
-    rows.append(("life_slab", 748, t, plain_ms, b_ms, by_ops))
+    rows.append(("life_slab", "life_slab", 748, t, plain_ms, b_ms, by_ops))
     kernel_ms = sum(
         n * slab_ms[key] for key, n in [
             ((LANE_SESSIONS, LANE_SHAPE[0]), SERVE_GENERATIONS // g),
@@ -862,7 +1112,8 @@ def main() -> int:
             planes, gs * 20, rule=brain, gens_per_call=gs, tile=tile), 1) / (20 * gs)
         sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B3 sweep:", "; ".join(sweep), f" [{card}]")
-    rows.append(("life_generations", 218, ms, plain_ms, bound_ms, ops_ms >= bytes_ms))
+    rows.append(("life_generations", "life_generations", 218, ms, plain_ms,
+                 bound_ms, ops_ms >= bytes_ms))
     del planes, u
 
     # B4: Bosco
@@ -888,13 +1139,64 @@ def main() -> int:
                 p, gs * 10, rule=bosco, gens_per_call=gs, tile=tile), 1) / (10 * gs)
             sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B4 sweep:", "; ".join(sweep), f" [{card}]")
-    rows.append(("life_ltl", 308, ms, plain_ms, bound_ms, ops_ms >= bytes_ms))
+    rows.append(("life_ltl", "life_ltl", 308, ms, plain_ms, bound_ms,
+                 ops_ms >= bytes_ms))
+    del p
+    stamp("timing B3 and B4")
+
+    # the slab kernels at the mesh main path's shapes: four 16384^2 bands,
+    # TORUS (code 0), and one mesh chunk (the row exchange, the launch and
+    # the crop) beside the launch alone
+    from gameoflifewithactors_torch.parallel import sharded
+    from gameoflifewithactors_torch.parallel.mesh import (
+        device_put_sharded_grid, make_mesh)
+
+    mesh = make_mesh((MESH_BANDS, 1), [dev] * MESH_BANDS)
+    grid = bitpack.pack(seeds.bernoulli(rng, MAIN_SHAPE, 0.5))
+    u = torch.rand(MAIN_SHAPE, generator=rng, device=dev)
+    planes = pack_generations_for((u * brain.states).to(torch.uint8), brain)
+    del u
+    for name, source, line, kernel, plain, make, state, rule, g, depth, opw in [
+            ("life_slab", "life_slab", None, cs.slab_step_kernel,
+             cs.slab_step_reference, sharded.make_multi_step_kernel, grid,
+             CONWAY, cs.DEFAULT_GENS_PER_CALL, cs.DEFAULT_GENS_PER_CALL,
+             ops_per_word(CONWAY)),
+            ("life_generations_slab", "life_generations", 679,
+             cs.slab_step_generations_kernel, cs.slab_step_generations_reference,
+             sharded.make_multi_step_generations_kernel, planes, brain,
+             cs.DEFAULT_GENERATIONS_GENS_PER_CALL,
+             cs.DEFAULT_GENERATIONS_GENS_PER_CALL, gen_ops_per_word(brain)),
+            ("life_ltl_slab", "life_ltl", 406, cs.slab_step_ltl_kernel,
+             cs.slab_step_ltl_reference, sharded.make_multi_step_ltl_kernel,
+             grid, bosco, cs.DEFAULT_LTL_GENS_PER_CALL,
+             bosco.radius * cs.DEFAULT_LTL_GENS_PER_CALL, ltl_ops_per_word(bosco))]:
+        ext = band_batch(state, MESH_BANDS, depth, Topology.TORUS)
+        t = timed_ms(lambda: kernel(ext, g, rule=rule), 20)
+        run = make(mesh, rule, Topology.TORUS, g)
+        placed = device_put_sharded_grid(state, mesh, banded=True)
+        chunk = timed_ms(lambda: run(placed, g), 10)
+        bands = ext.shape[0] * ext.shape[-2] * ext.shape[-1]   # words per plane
+        b_ms, by_ms, op_ms = bound(2 * ext.numel() * 4, g * bands * opw)
+        print(f"{name} kernel {MESH_BANDS} x {MAIN_SHAPE[0] // MESH_BANDS}x"
+              f"{MAIN_SHAPE[1]} {rule.notation} (ext {tuple(ext.shape)}) g={g}: "
+              f"{t:.5f} ms/launch, {MAIN_SHAPE[0] * MAIN_SHAPE[1] * g / (t / 1e3):.4e} "
+              f"cell-updates/s; bound {b_ms:.5f} ms (bytes {by_ms:.5f}, ops "
+              f"{op_ms:.5f}: {opw} ops/word/gen); mesh chunk (exchange + launch "
+              f"+ crop) {chunk:.5f} ms, {chunk / t - 1:+.1%} over the launch  "
+              f"[{card}]")
+        if line is not None:
+            plain_ms = timed_ms(lambda: plain(ext, g, rule=rule), 2)
+            print(f"{name} plain version ({plain.__name__}, no yardstick): "
+                  f"{plain_ms:.4f} ms/launch  [{card}]")
+            rows.append((name, source, line, t, plain_ms, b_ms, op_ms >= by_ms))
+        del ext, placed
+    stamp("timing the slab kernels at the mesh shapes")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"gameoflifewithactors_torch/csrc/{name}.cu",
+        "source": f"gameoflifewithactors_torch/csrc/{source}.cu",
         "replaces": f"{PALLAS}:{line}",
         "launches": main_launches[name],
         "identical": True,
@@ -905,7 +1207,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if by_ops else "bytes",
         "library_ms": None,
-    } for name, line, ms, plain_ms, bound_ms, by_ops in rows]}))
+    } for name, source, line, ms, plain_ms, bound_ms, by_ops in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,11 @@ The port of ``gameoflifewithactors_tpu`` to one NVIDIA H100: the same
 rules (life-like, Generations, Larger than Life), bit layout, engine and
 actor-shaped façade, written in PyTorch, with the temporal-blocked packed
 stencils as hand-written CUDA kernels (``ops/cuda_stencil.py``,
-``csrc/life_packed.cu``, ``csrc/life_generations.cu``,
-``csrc/life_ltl.cu``). It imports nothing of JAX or of the JAX package. Entry points run on ``"cuda"`` unless the
-caller passes ``device="cpu"``.
+``csrc/life_packed.cu``, ``csrc/life_slab.cu``,
+``csrc/life_generations.cu``, ``csrc/life_ltl.cu``), on one device or on
+a mesh (``parallel/``). It imports nothing of JAX or of the JAX package.
+Entry points run on ``"cuda"`` unless the caller passes
+``device="cpu"``.
 """
 
 from .models.rules import (  # noqa: F401

@@ -2,10 +2,10 @@
 
 Counterpart of ``gameoflifewithactors_tpu.config`` for the flags of the
 ported paths: grid, rule (life-like, Generations or Larger than Life),
-topology, seed, backend, steps, rendering, rate, metrics, population and
-the device. ``SimulationConfig.build()``
-assembles the coordinator and scheduler, so the CLI and library users
-share one construction path.
+topology, seed, backend, steps, rendering, rate, metrics, population, the
+device, the mesh and the generations per halo exchange.
+``SimulationConfig.build()`` assembles the mesh, the coordinator and the
+scheduler, so the CLI and library users share one construction path.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ class SimulationConfig:
     rng_seed: int = 0
     backend: str = "auto"                   # auto | packed | dense | cuda
     device: str = "cuda"                    # cuda | cpu
+    mesh: Optional[str] = None              # None | "auto" | "bands" | "2x4"
+    gens_per_exchange: Optional[int] = None  # band chunk; None: the kernel's
     steps: int = 100
     render_every: int = 1
     view_height: int = 40
@@ -40,6 +42,33 @@ class SimulationConfig:
     track_population: bool = False
 
     # -- assembly ------------------------------------------------------------
+
+    def build_mesh(self):
+        """The mesh ``--mesh`` names over every device of ``--device``'s
+        type: every CUDA device, or the one CPU device. "auto" factors them
+        near-square, "bands" stacks them as (n, 1) full-width row bands
+        (the layout the band-kernel runners use; one CUDA device makes a
+        (1, 1) mesh) and "NXxNY" must use them all."""
+        import torch
+
+        from .parallel import mesh as mesh_lib
+
+        if self.mesh is None:
+            return None
+        devices = None if self.device == "cuda" else [torch.device(self.device)]
+        if self.mesh == "auto":
+            return mesh_lib.make_mesh(devices=devices)
+        if self.mesh == "bands":
+            n = torch.cuda.device_count() if devices is None else len(devices)
+            return mesh_lib.make_mesh((n, 1), devices)
+        try:
+            shape = _parse_geometry(self.mesh)
+        except argparse.ArgumentTypeError:
+            raise ValueError(
+                f"--mesh must be 'auto', 'bands', or like '2x4', "
+                f"got {self.mesh!r}"
+            ) from None
+        return mesh_lib.make_mesh(shape, devices)
 
     def build_metrics(self):
         from .utils import metrics as metrics_lib
@@ -54,7 +83,7 @@ class SimulationConfig:
         raise ValueError(f"--metrics must be 'jsonl' or 'csv:PATH', got {self.metrics!r}")
 
     def build(self):
-        """Construct the (coordinator, scheduler) stack."""
+        """Construct the (mesh, coordinator, scheduler) stack."""
         from .coordinator import GridCoordinator
         from .models import seeds as seeds_lib
         from .scheduler import TickScheduler
@@ -79,6 +108,8 @@ class SimulationConfig:
             track_population=self.track_population,
             metrics=self.build_metrics(),
             view_shape=(self.view_height, self.view_width),
+            mesh=self.build_mesh(),
+            gens_per_exchange=self.gens_per_exchange,
         )
         scheduler = TickScheduler(
             coordinator,
@@ -120,6 +151,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the grid lives and steps (default cuda; cpu "
                         "runs the plain PyTorch path)")
+    p.add_argument("--mesh", default=None,
+                   help="'auto' (all devices, 2D tiles), 'bands' (all "
+                        "devices as (N, 1) full-width row bands -- the "
+                        "layout the band-kernel runners use), or 'NXxNY'; "
+                        "default single-device")
+    p.add_argument("--gens-per-exchange", type=int, default=None, metavar="G",
+                   help="with --mesh and the cuda backend: generations per "
+                        "halo exchange and kernel launch, 1..32 (default: "
+                        "the rule family's kernel default)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--render", choices=["off", "live", "final"], default="off")
     p.add_argument("--render-every", type=int, default=1, metavar="N",
@@ -147,6 +187,8 @@ def from_args(argv=None) -> "tuple[SimulationConfig, argparse.Namespace]":
         rng_seed=args.rng_seed,
         backend=args.backend,
         device=args.device,
+        mesh=args.mesh,
+        gens_per_exchange=args.gens_per_exchange,
         steps=args.steps,
         render_every=args.render_every,
         view_height=args.view[0],

@@ -10,7 +10,9 @@ subscribe — over one :class:`~.engine.Engine`: a cell's "mailbox" is bit
 Subscribers play the reference's Renderer role: callables invoked after
 each tick (or every ``render_every`` generations) with a RenderFrame. Any
 rule the Engine takes (life-like, Generations, Larger than Life) passes
-through unchanged; a multi-state frame carries the cells' states.
+through unchanged; a multi-state frame carries the cells' states. A
+``mesh`` (and ``gens_per_exchange``) pass through to the Engine, which
+then shards the grid over it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .engine import Engine, resolve_device
+from .engine import Engine, placement_device
 from .models import seeds as seeds_lib
 from .models.generations import GenRule
 from .models.ltl import LtLRule
@@ -62,12 +64,15 @@ class GridCoordinator:
         track_population: bool = False,
         metrics: Optional[MetricsLogger] = None,
         view_shape: Optional[Tuple[int, int]] = None,
+        mesh=None,
+        gens_per_exchange: Optional[int] = None,
     ):
-        device = resolve_device(device)
+        device = placement_device(device, mesh)
         grid = self._build_seed(shape, seed, seed_origin, random_fill,
                                 rng_seed, device)
         engine = Engine(grid, rule, topology=topology, backend=backend,
-                        device=device)
+                        device=device, mesh=mesh,
+                        gens_per_exchange=gens_per_exchange)
         self._init_from_engine(engine, track_population, metrics, view_shape)
 
     def _init_from_engine(self, engine, track_population, metrics, view_shape) -> None:

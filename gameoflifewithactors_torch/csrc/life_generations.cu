@@ -2,13 +2,25 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gameoflifewithactors_tpu/ops/pallas_stencil.py::
-// _make_gen_kernel in full-grid mode, as built by _gen_pallas_call /
-// _build_gen_runner and driven by multi_step_pallas_generations: `gens`
-// generations of a Generations rule B.../S.../C per launch on the
-// (b, H, W/32) stack, b = ceil(log2 C) = 2..8 planes, plane i holding bit i
-// of every cell's state (bit j of word x in row r is cell (r, 32*x + j)),
-// TORUS or DEAD. Each generation is what
-// ops/packed_generations.py::step_planes_slab computes.
+// _make_gen_kernel in both of its modes, as built by _gen_pallas_call:
+// - full grid (_build_gen_runner, driven by multi_step_pallas_generations):
+//   `gens` generations of a Generations rule B.../S.../C per launch on the
+//   (b, H, W/32) stack, b = ceil(log2 C) = 2..8 planes, plane i holding
+//   bit i of every cell's state (bit j of word x in row r is cell
+//   (r, 32*x + j)), TORUS or DEAD;
+// - slab mode with dead_band (make_pallas_gen_slab_step, driven by the
+//   sharded band runner): `gens` generations of a batch of halo-extended
+//   full-width bands, each a (b, He, W/32) stack with He = band rows +
+//   2*gens, the caller keeping rows [gens, He - gens). As in life_slab.cu,
+//   rows outside [0, He) load as zero in every plane and then evolve
+//   freely; with edge code bit 0 (bit 1) the extended rows < gens
+//   (>= He - gens) are zeroed in every plane before every generation (the
+//   dead exterior of the grid's top (bottom) band, _zero_band_exterior with
+//   row_axis=1); the code is one for the batch or one per band, read by
+//   blockIdx.z; horizontally TORUS wraps words and DEAD zeroes the words
+//   outside the grid before every generation.
+// Each generation is what ops/packed_generations.py::step_planes_slab
+// computes.
 //
 // What bounds it on this card: integer (LOP3 / funnel-shift) issue rate.
 // A generation costs about 26 bitwise operations per 32-cell word for
@@ -40,6 +52,13 @@
 // - TORUS reads rows and words modulo H and W/32, exact for any grid and
 //   tile; DEAD loads zeros outside the grid and writes zeros there, in
 //   every plane, after every generation.
+// - The slab mode is the second value of a template flag beside the plane
+//   count, so both modes share every line of the per-word arithmetic and
+//   the flag only picks a load rule, the dead-row test and the band
+//   offset. Slab row r of a
+//   block always holds extended row y0 - gens + r, so the dead band is two
+//   comparisons with limits fixed per block; one launch steps the whole
+//   batch, blockIdx.z being the band.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +68,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerItem = 8;
+constexpr int kFar = 1 << 30;   // a row limit no band reaches
 
 // (sel & hi) | (~sel & lo): one LOP3.
 __device__ __forceinline__ uint32_t mux(uint32_t sel, uint32_t hi, uint32_t lo) {
@@ -115,12 +135,17 @@ __device__ __forceinline__ void row_sums(uint32_t l, uint32_t c, uint32_t r,
   s1 = w & e;
 }
 
-template <int B>
+// Slab = false: the full grid (H rows, `dead` closes both axes). Slab =
+// true: blockIdx.z is a band of H = He extended rows, `dead` closes the
+// columns only, and `edge_code` (or edge_codes[blockIdx.z]) sets the dead
+// band.
+template <int B, bool Slab>
 __global__ void __launch_bounds__(kThreads)
 life_generations_kernel(const uint32_t* __restrict__ in,
                         uint32_t* __restrict__ out, int H, int Wp, int gens,
                         int th, int tw, unsigned born, unsigned survive,
-                        unsigned states, int dead) {
+                        unsigned states, int dead, int edge_code,
+                        const int* __restrict__ edge_codes) {
   extern __shared__ uint32_t smem[];
   const int L = th + 2 * gens;
   const int ww = tw + 2;        // words computed per row: tile + one halo each side
@@ -132,28 +157,43 @@ life_generations_kernel(const uint32_t* __restrict__ in,
   const size_t grid_plane = (size_t)H * Wp;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // the dead band of a slab: extended rows < top or >= bottom are zero
+  // before every generation
+  int top = -kFar, bottom = kFar;
+  if constexpr (Slab) {
+    in += (size_t)blockIdx.z * B * grid_plane;
+    out += (size_t)blockIdx.z * B * grid_plane;
+    if (edge_codes != nullptr) edge_code = edge_codes[blockIdx.z];
+    if (edge_code & 1) top = gens;
+    if (edge_code & 2) bottom = H - gens;
+  }
 
   // Load all planes: one warp per (plane, row), so a row's source index is
-  // reduced once.
+  // reduced once. A slab's rows outside [0, H) and in its dead band read
+  // as zeros; the full grid's wrap under TORUS.
   for (int pr = warp; pr < B * L; pr += kWarps) {
     const int j = pr / L;
     const int r = pr - j * L;
     int gr = row0 + r;
-    const bool row_in = gr >= 0 && gr < H;
-    if (dead && !row_in) {
-      gr = 0;  // the row reads as zeros; keep the pointer in range
-    } else if (!row_in) {
-      gr %= H;
-      if (gr < 0) gr += H;
+    bool row_in = gr >= 0 && gr < H;
+    if constexpr (Slab) row_in = row_in && gr >= top && gr < bottom;
+    if (!row_in) {
+      if (Slab || dead) {
+        gr = 0;  // the row reads as zeros; keep the pointer in range
+      } else {
+        gr %= H;
+        if (gr < 0) gr += H;
+        row_in = true;
+      }
     }
     const uint32_t* src = in + j * grid_plane + (size_t)gr * Wp;
     uint32_t* row = smem + j * plane + r * stride;
     for (int x = lane; x < stride; x += 32) {
       uint32_t v = 0u;
-      if (x > 0 && x <= ww) {
+      if (row_in && x > 0 && x <= ww) {
         int gc = col0 + x - 1;
         if (dead) {
-          if (row_in && gc >= 0 && gc < Wp) v = src[gc];
+          if (gc >= 0 && gc < Wp) v = src[gc];
         } else {
           if (gc < 0 || gc >= Wp) {
             gc %= Wp;
@@ -179,6 +219,9 @@ life_generations_kernel(const uint32_t* __restrict__ in,
     uint32_t* dst = smem + ((k + 1) & 1) * buffer;
     const int lo = k + 1;      // output rows [lo, hi) of this generation
     const int hi = L - k - 1;
+    // a slab's dead band is zeroed before every generation, so after
+    // every one but the last
+    const bool rezero_rows = k + 1 < gens;
     const int chunks = (hi - lo + kRowsPerItem - 1) / kRowsPerItem;
     for (int item = threadIdx.x; item < chunks * ww; item += kThreads) {
       const int chunk = item / ww;
@@ -238,7 +281,9 @@ life_generations_kernel(const uint32_t* __restrict__ in,
           eq &= ~(inc[j] ^ cbits[j]);
         }
         const int gr = row0 + r;
-        const bool zero = col_out || (dead && (gr < 0 || gr >= H));
+        const bool zero =
+            col_out || (Slab ? rezero_rows && (gr < top || gr >= bottom)
+                             : dead && (gr < 0 || gr >= H));
         uint32_t* o = dst + r * stride + x;
 #pragma unroll
         for (int j = 0; j < B; ++j) {
@@ -274,22 +319,41 @@ life_generations_kernel(const uint32_t* __restrict__ in,
   }
 }
 
-template <int B>
-int launch(const void* in, void* out, int H, int Wp, int gens, int th, int tw,
-           unsigned born, unsigned survive, unsigned states, int dead,
-           void* stream) {
+template <int B, bool Slab>
+int launch(const void* in, void* out, int nbands, int H, int Wp, int gens,
+           int th, int tw, unsigned born, unsigned survive, unsigned states,
+           int dead, int edge_code, const void* edge_codes, void* stream) {
   const size_t smem = 2ull * B * (th + 2 * gens) * (tw + 4) * sizeof(uint32_t);
   if (smem > 48u * 1024u) {
     const cudaError_t err = cudaFuncSetAttribute(
-        life_generations_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        life_generations_kernel<B, Slab>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((Wp + tw - 1) / tw, (H + th - 1) / th);
-  life_generations_kernel<B><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((Wp + tw - 1) / tw, (H + th - 1) / th, nbands);
+  life_generations_kernel<B, Slab><<<grid, kThreads, smem,
+                                     (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, H, Wp, gens, th, tw, born, survive,
-      states & ((1u << B) - 1u), dead);
+      states & ((1u << B) - 1u), dead, edge_code, (const int*)edge_codes);
   return (int)cudaGetLastError();
+}
+
+template <bool Slab>
+int launch_planes(const void* in, void* out, int nbands, int planes, int H,
+                  int Wp, int gens, int th, int tw, unsigned born,
+                  unsigned survive, unsigned states, int dead, int edge_code,
+                  const void* edge_codes, void* stream) {
+#define LAUNCH(b)                                                         \
+  case b:                                                                 \
+    return launch<b, Slab>(in, out, nbands, H, Wp, gens, th, tw, born,    \
+                           survive, states, dead, edge_code, edge_codes,  \
+                           stream)
+  switch (planes) {
+    LAUNCH(2); LAUNCH(3); LAUNCH(4); LAUNCH(5); LAUNCH(6); LAUNCH(7);
+    LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
 }
 
 }  // namespace
@@ -304,16 +368,23 @@ int life_generations_launch(const void* in, void* out, int planes, int H,
                             int Wp, int gens, int th, int tw, unsigned born,
                             unsigned survive, unsigned states, int dead,
                             void* stream) {
-  switch (planes) {
-    case 2: return launch<2>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 3: return launch<3>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 4: return launch<4>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 5: return launch<5>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 6: return launch<6>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 7: return launch<7>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    case 8: return launch<8>(in, out, H, Wp, gens, th, tw, born, survive, states, dead, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_planes<false>(in, out, 1, planes, H, Wp, gens, th, tw, born,
+                              survive, states, dead, 0, nullptr, stream);
+}
+
+// Launches one slab-mode call of `gens` generations from `in` to `out`
+// (distinct (nbands, planes, He, Wp) uint32 batches) on `stream`;
+// `dead_cols` closes the columns, `edge_codes` (a device array of nbands
+// int32 codes, or null for `edge_code` on every band) the rows. Returns
+// as life_generations_launch does.
+int life_generations_slab_launch(const void* in, void* out, int nbands,
+                                 int planes, int He, int Wp, int gens, int th,
+                                 int tw, unsigned born, unsigned survive,
+                                 unsigned states, int dead_cols, int edge_code,
+                                 const void* edge_codes, void* stream) {
+  return launch_planes<true>(in, out, nbands, planes, He, Wp, gens, th, tw,
+                             born, survive, states, dead_cols, edge_code,
+                             edge_codes, stream);
 }
 
 const char* life_generations_error_string(int code) {

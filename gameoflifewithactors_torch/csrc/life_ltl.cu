@@ -1,13 +1,25 @@
 // Temporal-blocked bit-packed Larger-than-Life stencil for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gameoflifewithactors_tpu/ops/pallas_stencil.py::
-// _make_ltl_kernel in full-grid mode, as built by _ltl_pallas_call /
-// _build_ltl_runner and driven by multi_step_ltl_pallas: `gens` generations
-// per launch of a binary radius-r (1..7) Larger-than-Life rule — Moore box
-// or von Neumann diamond, HROT interval lists, M0 or M1 — on the (H, W/32)
-// packed grid (bit i of word j in row r is cell (r, 32*j + i)), TORUS or
-// DEAD. Each generation computes what ops/packed_ltl.py::
-// step_ltl_packed_slab computes.
+// _make_ltl_kernel in both of its modes, as built by _ltl_pallas_call:
+// `gens` generations per launch of a binary radius-r (1..7)
+// Larger-than-Life rule — Moore box or von Neumann diamond, HROT interval
+// lists, M0 or M1 — on packed words (bit i of word j in row r is cell
+// (r, 32*j + i)):
+// - full grid (_build_ltl_runner, driven by multi_step_ltl_pallas): the
+//   (H, W/32) grid, TORUS or DEAD;
+// - slab mode with dead_band (make_ltl_pallas_slab_step, driven by the
+//   sharded band runner): a batch of halo-extended full-width (He, W/32)
+//   bands, He = band rows + 2*r*gens, the caller keeping rows
+//   [r*gens, He - r*gens). Rows outside [0, He) load as zero and then
+//   evolve freely; with edge code bit 0 (bit 1) the extended rows < r*gens
+//   (>= He - r*gens) are zeroed before every generation (the dead exterior
+//   of the grid's top (bottom) band: _zero_band_exterior with a halo of
+//   r*gens rows, shrinking r rows per generation); the code is one for the
+//   batch or one per band, read by blockIdx.z; TORUS wraps words and DEAD
+//   zeroes the words outside the grid before every generation.
+// Each generation computes what ops/packed_ltl.py::step_ltl_packed_slab
+// computes.
 //
 // What bounds it on this card: integer (LOP3 / funnel-shift) issue rate.
 // A radius-5 box generation costs well over a hundred bitwise operations
@@ -47,6 +59,11 @@
 //   counterpart of the per-generation _zero_edge_rows re-zero.
 // - Shared-memory rows carry a zero word at each end, so the funnel shifts
 //   at the slab's edge words need no bounds test.
+// - The slab mode is a template flag: both modes share the counting and
+//   the rule; the flag picks the load rule, the dead-row test and the
+//   band offset (blockIdx.z). Slab row y always holds extended row
+//   y0 - r*gens + y, so the dead band is two comparisons with limits fixed
+//   per block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +75,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerItem = 16;
 constexpr int kMaxBounds = 32;   // interval boundaries per set (16 intervals)
 constexpr int kCountPlanes = 8;  // counts <= 225 < 256
+constexpr int kFar = 1 << 30;    // a row limit no band reaches
 
 struct LtlRule {
   int radius;
@@ -144,9 +162,15 @@ __device__ __forceinline__ uint32_t in_set(const uint32_t (&cnt)[kCountPlanes],
   return v;
 }
 
+// Slab = false: the full grid (H rows, `dead` closes both axes). Slab =
+// true: blockIdx.z is a band of H = He extended rows, `dead` closes the
+// columns only, and `edge_code` (or edge_codes[blockIdx.z]) sets the dead
+// band.
+template <bool Slab>
 __global__ void __launch_bounds__(kThreads)
 life_ltl_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int H, int Wp, int gens, int th, int tw, int hw, int dead,
+                int edge_code, const int* __restrict__ edge_codes,
                 const LtlRule rule) {
   extern __shared__ uint32_t smem[];
   const int rad = rule.radius;
@@ -159,25 +183,41 @@ life_ltl_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int col0 = blockIdx.x * tw - hw;  // grid word of slab word 0
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // the dead band of a slab: extended rows < top or >= bottom are zero
+  // before every generation
+  int top = -kFar, bottom = kFar;
+  if constexpr (Slab) {
+    in += (size_t)blockIdx.z * H * Wp;
+    out += (size_t)blockIdx.z * H * Wp;
+    if (edge_codes != nullptr) edge_code = edge_codes[blockIdx.z];
+    if (edge_code & 1) top = hr;
+    if (edge_code & 2) bottom = H - hr;
+  }
 
-  // Load: one warp per row, so a row's source index is reduced once.
+  // Load: one warp per row, so a row's source index is reduced once. A
+  // slab's rows outside [0, H) and in its dead band read as zeros; the
+  // full grid's wrap under TORUS.
   for (int r = warp; r < L; r += kWarps) {
     int gr = row0 + r;
-    const bool row_in = gr >= 0 && gr < H;
-    if (dead && !row_in) {
-      gr = 0;  // the row reads as zeros; keep the pointer in range
-    } else if (!row_in) {
-      gr %= H;
-      if (gr < 0) gr += H;
+    bool row_in = gr >= 0 && gr < H;
+    if constexpr (Slab) row_in = row_in && gr >= top && gr < bottom;
+    if (!row_in) {
+      if (Slab || dead) {
+        gr = 0;  // the row reads as zeros; keep the pointer in range
+      } else {
+        gr %= H;
+        if (gr < 0) gr += H;
+        row_in = true;
+      }
     }
     const uint32_t* src = in + (size_t)gr * Wp;
     uint32_t* row = smem + r * stride;
     for (int x = lane; x < stride; x += 32) {
       uint32_t v = 0u;
-      if (x > 0 && x <= ww) {
+      if (row_in && x > 0 && x <= ww) {
         int gc = col0 + x - 1;
         if (dead) {
-          if (row_in && gc >= 0 && gc < Wp) v = src[gc];
+          if (gc >= 0 && gc < Wp) v = src[gc];
         } else {
           if (gc < 0 || gc >= Wp) {
             gc %= Wp;
@@ -197,6 +237,9 @@ life_ltl_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     uint32_t* dst = smem + ((k + 1) & 1) * plane;
     const int lo = rad * (k + 1);   // output rows [lo, hi) of this generation
     const int hi = L - rad * (k + 1);
+    // a slab's dead band is zeroed before every generation, so after
+    // every one but the last
+    const bool rezero_rows = k + 1 < gens;
     const int chunks = (hi - lo + kRowsPerItem - 1) / kRowsPerItem;
     for (int item = threadIdx.x; item < chunks * ww; item += kThreads) {
       const int chunk = item / ww;
@@ -243,7 +286,9 @@ life_ltl_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
         const uint32_t born = in_set(cnt, rule.born, rule.nborn);
         const uint32_t keep = in_set(cnt, rule.surv, rule.nsurv);
         const int gr = row0 + y;
-        const bool zero = col_out || (dead && (gr < 0 || gr >= H));
+        const bool zero =
+            col_out || (Slab ? rezero_rows && (gr < top || gr >= bottom)
+                             : dead && (gr < 0 || gr >= H));
         dst[y * stride + x] = zero ? 0u : mux(alive, keep, born);
         if (!rule.diamond && y + 1 < re) {
           // slide the box: add the row entering below, drop the one above
@@ -271,20 +316,11 @@ life_ltl_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one call of `gens` generations from `in` to `out` (distinct
-// (H, Wp) uint32 buffers) on `stream`, with `hw` halo words per side
-// (32 * hw >= radius * gens). `born`/`surv` hold the sorted interval
-// boundaries of the birth and survival sets. Returns the CUDA error code of
-// the launch (0 on success), or cudaErrorInvalidValue for a rule the
-// kernel does not take.
-int life_ltl_launch(const void* in, void* out, int H, int Wp, int gens, int th,
-                    int tw, int hw, int radius, int diamond, int middle,
-                    int nborn, const int* born, int nsurv, const int* surv,
-                    int dead, void* stream) {
+template <bool Slab>
+int launch(const void* in, void* out, int nbands, int H, int Wp, int gens,
+           int th, int tw, int hw, int radius, int diamond, int middle,
+           int nborn, const int* born, int nsurv, const int* surv, int dead,
+           int edge_code, const void* edge_codes, void* stream) {
   if (radius < 1 || radius > 7 || nborn < 0 || nborn > kMaxBounds ||
       nsurv < 0 || nsurv > kMaxBounds || 32 * hw < radius * gens)
     return (int)cudaErrorInvalidValue;
@@ -302,13 +338,49 @@ int life_ltl_launch(const void* in, void* out, int H, int Wp, int gens, int th,
                       sizeof(uint32_t);
   if (smem > 48u * 1024u) {
     const cudaError_t err = cudaFuncSetAttribute(
-        life_ltl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        life_ltl_kernel<Slab>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((Wp + tw - 1) / tw, (H + th - 1) / th);
-  life_ltl_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, H, Wp, gens, th, tw, hw, dead, rule);
+  const dim3 grid((Wp + tw - 1) / tw, (H + th - 1) / th, nbands);
+  life_ltl_kernel<Slab><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, H, Wp, gens, th, tw, hw, dead,
+      edge_code, (const int*)edge_codes, rule);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one call of `gens` generations from `in` to `out` (distinct
+// (H, Wp) uint32 buffers) on `stream`, with `hw` halo words per side
+// (32 * hw >= radius * gens). `born`/`surv` hold the sorted interval
+// boundaries of the birth and survival sets. Returns the CUDA error code of
+// the launch (0 on success), or cudaErrorInvalidValue for a rule the
+// kernel does not take.
+int life_ltl_launch(const void* in, void* out, int H, int Wp, int gens, int th,
+                    int tw, int hw, int radius, int diamond, int middle,
+                    int nborn, const int* born, int nsurv, const int* surv,
+                    int dead, void* stream) {
+  return launch<false>(in, out, 1, H, Wp, gens, th, tw, hw, radius, diamond,
+                       middle, nborn, born, nsurv, surv, dead, 0, nullptr,
+                       stream);
+}
+
+// Launches one slab-mode call of `gens` generations from `in` to `out`
+// (distinct (nbands, He, Wp) uint32 batches) on `stream`; `dead_cols`
+// closes the columns, `edge_codes` (a device array of nbands int32 codes,
+// or null for `edge_code` on every band) the rows. Returns as
+// life_ltl_launch does.
+int life_ltl_slab_launch(const void* in, void* out, int nbands, int He, int Wp,
+                         int gens, int th, int tw, int hw, int radius,
+                         int diamond, int middle, int nborn, const int* born,
+                         int nsurv, const int* surv, int dead_cols,
+                         int edge_code, const void* edge_codes, void* stream) {
+  return launch<true>(in, out, nbands, He, Wp, gens, th, tw, hw, radius,
+                      diamond, middle, nborn, born, nsurv, surv, dead_cols,
+                      edge_code, edge_codes, stream);
 }
 
 const char* life_ltl_error_string(int code) {

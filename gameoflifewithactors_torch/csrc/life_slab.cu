@@ -14,7 +14,10 @@
 //   (>= He - gens) are zeroed before every generation: the permanently
 //   dead exterior of a band at the grid's top (bottom) edge under a DEAD
 //   vertical closure (_zero_band_exterior). Edge code 0 lets every row
-//   evolve freely;
+//   evolve freely. The code is one for the whole batch (the serving
+//   lanes: every band is a whole grid) or one per band, read from a
+//   device array by blockIdx.z (the bands of a mesh on one device: 1 for
+//   the top band, 2 for the bottom one, 0 between);
 // - horizontally, TORUS wraps words modulo W/32 and DEAD zeroes the words
 //   outside the grid before every generation.
 // The whole (He, W/32) result is defined this way, halo rows included, and
@@ -58,8 +61,10 @@ using life::rule_masks;
 __global__ void __launch_bounds__(kThreads)
 life_slab_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                  int He, int Wp, int gens, int th, int tw, unsigned born,
-                 unsigned survive, int dead_cols, int edge_code) {
+                 unsigned survive, int dead_cols, int edge_code,
+                 const int* __restrict__ edge_codes) {
   extern __shared__ uint32_t smem[];
+  if (edge_codes != nullptr) edge_code = edge_codes[blockIdx.z];
   const size_t band = (size_t)blockIdx.z * He * Wp;
   in += band;
   out += band;
@@ -159,11 +164,14 @@ life_slab_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 extern "C" {
 
 // Launches one call of `gens` generations from `in` to `out` (distinct
-// (B, He, Wp) uint32 buffers) on `stream`. Returns the CUDA error code of
-// the launch (0 on success).
+// (B, He, Wp) uint32 buffers) on `stream`. `edge_codes`, when not null, is
+// a device array of B int32 edge codes, one per band, in place of
+// `edge_code` for all of them. Returns the CUDA error code of the launch
+// (0 on success).
 int life_slab_launch(const void* in, void* out, int B, int He, int Wp,
                      int gens, int th, int tw, unsigned born, unsigned survive,
-                     int dead_cols, int edge_code, void* stream) {
+                     int dead_cols, int edge_code, const void* edge_codes,
+                     void* stream) {
   const size_t smem = 2ull * (th + 2 * gens) * (tw + 4) * sizeof(uint32_t);
   if (smem > 48u * 1024u) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -174,7 +182,7 @@ int life_slab_launch(const void* in, void* out, int B, int He, int Wp,
   const dim3 grid((Wp + tw - 1) / tw, (He + th - 1) / th, B);
   life_slab_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, He, Wp, gens, th, tw, born, survive,
-      dead_cols, edge_code);
+      dead_cols, edge_code, (const int*)edge_codes);
   return (int)cudaGetLastError();
 }
 

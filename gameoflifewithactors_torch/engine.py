@@ -1,10 +1,12 @@
 """Device-side simulation engine: owns the grid tensor and steps it.
 
-Counterpart of ``gameoflifewithactors_tpu.engine`` for single-device
-life-like (B/S), Generations and Larger-than-Life rules. The state is one
-tensor — bit-packed int32 words, a ``(b, H, W/32)`` bit-plane stack for
-multi-state rules, or one byte per cell on the dense path — stepped by a
-hand-written CUDA kernel (:mod:`.ops.cuda_stencil`) or by plain PyTorch.
+Counterpart of ``gameoflifewithactors_tpu.engine`` for life-like (B/S),
+Generations and Larger-than-Life rules, on one device or on a mesh. The
+state is one tensor — bit-packed int32 words, a ``(b, H, W/32)`` bit-plane
+stack for multi-state rules, or one byte per cell on the dense path — or,
+with a mesh, that tensor placed on the mesh (:mod:`.parallel.mesh`),
+stepped by a hand-written CUDA kernel (:mod:`.ops.cuda_stencil`; with a
+mesh the band runners of :mod:`.parallel.sharded`) or by plain PyTorch.
 ``step`` only enqueues work on the current CUDA stream; data comes back to
 the host only when :meth:`Engine.snapshot` or :meth:`Engine.population`
 asks for it.
@@ -37,16 +39,18 @@ from .ops.packed_generations import (
 )
 from .ops.packed_ltl import multi_step_ltl_packed, multi_step_ltl_planes
 from .ops.stencil import Topology, multi_step
+from .parallel import sharded
+from .parallel.mesh import COL_AXIS, ROW_AXIS, Mesh, device_put_sharded_grid
 from .utils.interop import state_from_numpy
 
 BACKENDS = ("packed", "dense", "cuda")
 _UNPORTED_BACKENDS = ("sparse", "paged")
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str = "queue A") -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to gameoflifewithactors_torch "
-        "(see ROADMAP.md queue A)")
+        f"(see ROADMAP.md {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,6 +67,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def placement_device(device=None, mesh: Optional[Mesh] = None) -> torch.device:
+    """Where an entry point builds its grid: ``device`` as
+    :func:`resolve_device` reads it, or, with a mesh, the mesh's first
+    device (``device``, if given, must be of the mesh's type)."""
+    if mesh is None:
+        return resolve_device(device)
+    home = mesh.devices.flat[0]
+    if device is not None and torch.device(device).type != home.type:
+        raise ValueError(f"device {device} is not where mesh {mesh} lives")
+    return home
+
+
+def _kernels_run_on(device: torch.device) -> bool:
+    """Whether the CUDA kernels can step a state that lives on
+    ``device``."""
+    return device.type == "cuda"
+
+
 def _kernel_takes(rule, h: int, wp: int) -> bool:
     """Whether a CUDA kernel serves ``rule`` on a packed (h, wp) grid."""
     if isinstance(rule, GenRule):
@@ -70,6 +92,41 @@ def _kernel_takes(rule, h: int, wp: int) -> bool:
     if isinstance(rule, LtLRule):
         return cuda_stencil.supported_ltl((h, wp), rule)
     return cuda_stencil.supported((h, wp))
+
+
+def default_gens_per_exchange(rule) -> int:
+    """The band runners' default chunk: the rule family's kernel default
+    from the sweeps on the card (8 for B/S, 16 for Generations, 2 for
+    Larger than Life)."""
+    if isinstance(rule, GenRule):
+        return cuda_stencil.DEFAULT_GENERATIONS_GENS_PER_CALL
+    if isinstance(rule, LtLRule):
+        return cuda_stencil.DEFAULT_LTL_GENS_PER_CALL
+    return cuda_stencil.DEFAULT_GENS_PER_CALL
+
+
+def _band_kernel_takes(rule, h: int, wp: int, mesh: Mesh, g: int,
+                       depth_fits: bool = True) -> bool:
+    """Whether the slab kernel of ``rule``'s family takes the bands of a
+    packed (h, wp) grid over the flattened ``mesh`` at ``g`` generations
+    per chunk: whole bands, a chunk's exchange no deeper than a band
+    (unless ``depth_fits`` is False) and the kernel's limits on the
+    extended band batch each device launches."""
+    nb = mesh.size
+    if h % nb:
+        return False
+    rows = h // nb
+    depth = g * (rule.radius if isinstance(rule, LtLRule) else 1)
+    if depth_fits and depth > rows:
+        return False
+    ext = (rows + 2 * depth, wp)
+    batch = max(len(positions) for _, positions in mesh.groups)
+    if isinstance(rule, GenRule):
+        return cuda_stencil.supported_generations_slab(
+            ext, n_planes(rule.states), g, batch=batch)
+    if isinstance(rule, LtLRule):
+        return cuda_stencil.supported_ltl_slab(ext, rule, g, batch=batch)
+    return cuda_stencil.supported_slab(ext, g, batch=batch)
 
 
 class Engine:
@@ -93,8 +150,17 @@ class Engine:
         not pack), "cuda" (the temporal-blocked Hopper kernel of the
         rule's family), "packed" (32 cells/word SWAR in plain torch; a
         bit-plane stack for multi-state rules) or "dense" (1 byte/cell).
-    device: "cuda" (default) or "cpu".
-    mesh: sharded engines are not ported yet; anything but None raises.
+        With a mesh: "cuda" is the band runner of the rule's family
+        (full-width row bands over the flattened mesh, one slab-kernel
+        launch per device and chunk), which "auto" picks on CUDA wherever
+        the slab kernel takes the band shape; "packed" and "dense" step 2D
+        tiles in plain torch, one halo exchange per generation.
+    device: "cuda" (default) or "cpu"; with a mesh, the mesh's devices
+        (``device``, if given, must be of their type).
+    mesh: a :class:`.parallel.mesh.Mesh` to shard the grid over, or None.
+    gens_per_exchange: with a mesh and backend "cuda", generations per
+        chunk (one row exchange and one kernel launch each), 1..32; None is
+        the family's kernel default (8 B/S, 16 Generations, 2 LtL).
     """
 
     def __init__(
@@ -105,14 +171,16 @@ class Engine:
         topology: Topology = Topology.TORUS,
         backend: str = "auto",
         device=None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
+        gens_per_exchange: Optional[int] = None,
     ):
         shape = tuple(grid.shape) if isinstance(grid, torch.Tensor) \
             else np.shape(grid)
         if len(shape) != 2:
             raise ValueError(f"grid must be 2D, got shape {shape}")
-        self._configure(rule, topology, backend, device, mesh, shape)
-        self._state = self._encode(self._cells(grid))
+        self._configure(rule, topology, backend, device, mesh, shape,
+                        gens_per_exchange)
+        self._state = self._place(self._encode(self._cells(grid)))
 
     @classmethod
     def from_packed(
@@ -156,24 +224,49 @@ class Engine:
         return self
 
     def _configure(self, rule, topology: Topology, backend: str, device,
-                   mesh, shape: Tuple[int, int]) -> None:
+                   mesh: Optional[Mesh], shape: Tuple[int, int],
+                   gens_per_exchange: Optional[int] = None) -> None:
         self.rule = parse_any(rule)
-        if mesh is not None:
-            raise _not_ported("the sharded (mesh) engine")
         if backend in _UNPORTED_BACKENDS:
+            if mesh is not None:
+                raise _not_ported(f"the sharded {backend!r} backend",
+                                  "A12 (with A9 and A10)")
             raise _not_ported(f"the {backend!r} backend")
         if backend not in BACKENDS and backend != "auto":
             raise ValueError(
                 f"backend must be 'auto' or one of {BACKENDS}, got {backend!r}")
-        self.device = resolve_device(device)
+        if gens_per_exchange is not None and gens_per_exchange < 1:
+            raise ValueError(
+                f"gens_per_exchange must be >= 1, got {gens_per_exchange}")
+        self.device = placement_device(device, mesh)
+        self.mesh = mesh
         self._states = getattr(self.rule, "states", 2)
         h, w = shape
-        packs = w % bitpack.WORD == 0
+        # with a mesh, 2D tiles shard the width: whole words per mesh column
+        ny = 1 if mesh is None else mesh.shape[COL_AXIS]
+        packs = w % (bitpack.WORD * ny) == 0
         ltl_planes = isinstance(self.rule, LtLRule) and self._states > 2
+        g = gens_per_exchange or default_gens_per_exchange(self.rule)
         if backend == "auto":
-            backend = self._resolve_auto(h, w, packs, ltl_planes)
+            backend = self._resolve_auto(h, w, packs, ltl_planes, g)
+        binary3 = not isinstance(self.rule, (GenRule, LtLRule))
+        if gens_per_exchange not in (None, 1) and not (
+                mesh is not None
+                and (backend == "cuda" or (backend == "packed" and binary3))):
+            raise ValueError(
+                "gens_per_exchange applies to the sharded packed and cuda "
+                "backends only (mesh + backend='packed'/'cuda'/'auto' for "
+                "3x3 binary rules, mesh + backend='cuda' for Generations "
+                "and LtL)")
+        if backend == "packed" and gens_per_exchange not in (None, 1):
+            raise _not_ported(
+                "the communication-avoiding deep and ghost-zone packed "
+                "runners (mesh + backend='packed' + gens_per_exchange > 1)",
+                "A12")
+        if mesh is not None:
+            self._check_mesh(h, w, backend)
         if backend == "cuda":
-            if self.device.type != "cuda":
+            if not _kernels_run_on(self.device):
                 raise ValueError(
                     "backend 'cuda' launches the CUDA kernel and needs a CUDA "
                     f"device, got {self.device}")
@@ -181,17 +274,27 @@ class Engine:
                 raise ValueError(
                     f"backend 'cuda' has no kernel for {self.rule.notation}: "
                     "multi-state Larger than Life runs on 'packed' or 'dense'")
-            if not packs or not _kernel_takes(self.rule, h, w // bitpack.WORD):
+            wp = w // bitpack.WORD
+            if mesh is not None:
+                # a chunk deeper than a band raises when it runs, as the
+                # JAX runner does at trace time
+                ok = _band_kernel_takes(self.rule, h, wp, mesh, g,
+                                        depth_fits=False)
+            else:
+                ok = w % bitpack.WORD == 0 and _kernel_takes(self.rule, h, wp)
+            if not ok:
                 raise ValueError(
                     f"backend 'cuda' cannot take {self.rule.notation} on a "
                     f"{h}x{w} grid (the width must be a multiple of "
                     f"{bitpack.WORD})")
-        if backend == "packed" and not packs:
+        if backend == "packed" and not packs and mesh is None:
             raise ValueError(
                 f"backend 'packed' needs a width that is a multiple of "
                 f"{bitpack.WORD}, got {w}")
         self.topology = topology
         self.backend = backend
+        self.gens_per_exchange = g if mesh is not None and backend == "cuda" \
+            else (gens_per_exchange or 1)
         self.shape: Tuple[int, int] = (int(h), int(w))
         self.generation = 0
         # "words": (H, W/32) bits; "planes": (b, H, W/32) state bit-planes
@@ -199,12 +302,81 @@ class Engine:
             self._layout = "dense"
         else:
             self._layout = "planes" if self._states > 2 else "words"
+        self._runner = None if mesh is None else self._mesh_runner()
+
+    def _check_mesh(self, h: int, w: int, backend: str) -> None:
+        """The JAX engine's divisibility and radius checks, in cell units,
+        with its messages."""
+        nx, ny = self.mesh.shape[ROW_AXIS], self.mesh.shape[COL_AXIS]
+        nb = nx * ny
+        if backend == "cuda":
+            # band path: nx*ny full-width bands; the width is not sharded
+            if h % nb or w % bitpack.WORD:
+                raise ValueError(
+                    f"grid {(h, w)} not divisible into {nb} full-width row "
+                    f"bands over mesh ({nx}, {ny}): need height % {nb} == 0 "
+                    f"and width % {bitpack.WORD} == 0 (band-kernel path)")
+        else:
+            packed = backend == "packed"
+            wq = bitpack.WORD * ny if packed else ny
+            if h % nx or w % wq:
+                raise ValueError(
+                    f"grid {(h, w)} not divisible over mesh ({nx}, {ny}): "
+                    f"need height % {nx} == 0 and width % {wq} == 0"
+                    + (" (bit-packed backends shard 32-cell words)"
+                       if packed else ""))
+        if isinstance(self.rule, LtLRule):
+            r = self.rule.radius
+            if backend == "cuda":
+                if h // nb < r:
+                    raise ValueError(
+                        f"{h // nb}-row bands over the flattened ({nx}, {ny}) "
+                        f"mesh are smaller than the rule radius {r}: halo "
+                        "exchange needs depth <= band height; use fewer "
+                        "devices")
+            elif h // nx < r or w // ny < r:
+                raise ValueError(
+                    f"mesh tiles {h // nx}x{w // ny} smaller than the rule "
+                    f"radius {r}: halo exchange needs depth <= tile size; use "
+                    "fewer devices")
+
+    def _mesh_runner(self):
+        """The sharded runner of the backend and the rule's family."""
+        mesh, rule, topology = self.mesh, self.rule, self.topology
+        if self.backend == "cuda":
+            if isinstance(rule, GenRule):
+                make = sharded.make_multi_step_generations_kernel
+            elif isinstance(rule, LtLRule):
+                make = sharded.make_multi_step_ltl_kernel
+            else:
+                make = sharded.make_multi_step_kernel
+            return make(mesh, rule, topology, self.gens_per_exchange)
+        dense = self._layout == "dense"
+        if isinstance(rule, GenRule):
+            make = (sharded.make_multi_step_generations if dense
+                    else sharded.make_multi_step_generations_packed)
+        elif isinstance(rule, LtLRule):
+            make = (sharded.make_multi_step_ltl if dense
+                    else sharded.make_multi_step_ltl_planes if self._states > 2
+                    else sharded.make_multi_step_ltl_packed)
+        else:
+            make = (sharded.make_multi_step_dense if dense
+                    else sharded.make_multi_step_packed)
+        return make(mesh, rule, topology)
 
     def _resolve_auto(self, h: int, w: int, packs: bool,
-                      ltl_planes: bool) -> str:
+                      ltl_planes: bool, g: int) -> str:
+        on_card = _kernels_run_on(self.device)
+        if self.mesh is not None:
+            if (on_card and not ltl_planes and w % bitpack.WORD == 0
+                    and _band_kernel_takes(self.rule, h, w // bitpack.WORD,
+                                           self.mesh, g)):
+                return "cuda"
+            if on_card or not isinstance(self.rule, LtLRule):
+                return "packed" if packs else "dense"
         if not packs:
             return "dense"
-        if self.device.type == "cuda":
+        if on_card:
             if ltl_planes:   # no kernel serves multi-state LtL
                 return "packed"
             return "cuda" if _kernel_takes(self.rule, h, w // bitpack.WORD) \
@@ -243,7 +415,17 @@ class Engine:
             return pack_generations_for(cells, self.rule)
         return bitpack.pack(cells) if self._layout == "words" else cells
 
-    def _run(self, state: torch.Tensor, n: int) -> torch.Tensor:
+    def _place(self, state: torch.Tensor):
+        """The encoded state on the mesh (full-width bands for the band
+        runners, 2D tiles otherwise), or as it is without a mesh."""
+        if self.mesh is None:
+            return state
+        return device_put_sharded_grid(state, self.mesh,
+                                       banded=self.backend == "cuda")
+
+    def _run(self, state, n: int):
+        if self._runner is not None:
+            return self._runner(state, n)
         rule, topology = self.rule, self.topology
         if isinstance(rule, GenRule):
             if self.backend == "cuda":
@@ -281,9 +463,13 @@ class Engine:
         self.generation += n
 
     def block_until_ready(self) -> None:
-        """Wait until the device has finished every step enqueued."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait until the device (every device of the mesh) has finished
+        every step enqueued."""
+        devices = [self.device] if self.mesh is None else \
+            [d for d, _ in self.mesh.groups]
+        for device in devices:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     # -- observation ---------------------------------------------------------
 
@@ -291,20 +477,31 @@ class Engine:
     def state(self) -> torch.Tensor:
         """The raw device tensor (packed int32 words, a bit-plane stack, or
         uint8 cells). A step replaces it; use :meth:`snapshot` for a stable
-        host copy."""
+        host copy. With a mesh, a new tensor gathered from the shards onto
+        the mesh's first device (:attr:`sharded_state` is the placed
+        state itself)."""
+        if self.mesh is not None:
+            return self._state.gather()
         return self._state
+
+    @property
+    def sharded_state(self):
+        """With a mesh, the :class:`.parallel.mesh.ShardedGrid` the runners
+        step; None without one."""
+        return self._state if self.mesh is not None else None
 
     def snapshot(self, max_shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
         """The full grid as host uint8 (H, W); optionally block-max
         downsampled *on device* to fit within ``max_shape`` before the
         transfer, so rendering a 16384² universe to a console ships a few
         KB."""
+        state = self.state
         if self._layout == "planes":
-            dense = unpack_generations(self._state)
+            dense = unpack_generations(state)
         elif self._layout == "words":
-            dense = bitpack.unpack(self._state)
+            dense = bitpack.unpack(state)
         else:
-            dense = self._state
+            dense = state
         if max_shape is not None:
             dense = _downsample_max(dense, max_shape)
         # a copy: for a CPU tensor .numpy() would be a view of live state
@@ -313,17 +510,23 @@ class Engine:
     def population(self) -> int:
         """Exact live-cell count (device-side count, host-side total). For
         multi-state rules only state 1 is alive: dying states occupy space
-        but are not population."""
+        but are not population. With a mesh, each position's block is
+        counted on its own device."""
+        if self.mesh is None:
+            return self._population(self._state)
+        return sum(self._population(block) for block in self._state.blocks())
+
+    def _population(self, state: torch.Tensor) -> int:
         if self._layout == "planes":
-            return population_packed_generations(self._state)
+            return population_packed_generations(state)
         if self._layout == "words":
-            return bitpack.population(self._state)
-        return int((self._state == 1).sum(dtype=torch.int64))
+            return bitpack.population(state)
+        return int((state == 1).sum(dtype=torch.int64))
 
     # -- state injection -----------------------------------------------------
 
     def set_grid(self, grid, generation: Optional[int] = None) -> None:
-        self._state = self._encode(self._cells(grid))
+        self._state = self._place(self._encode(self._cells(grid)))
         if generation is not None:
             self.generation = generation
 

@@ -14,11 +14,20 @@ Counterpart of the full-grid kernels of
   radius-r Larger-than-Life rule on a packed grid
   (:func:`multi_step_ltl_kernel`, ``csrc/life_ltl.cu``);
 
-and of B2, ``_make_kernel`` in slab mode with ``dead_band`` /
-``make_pallas_slab_step``: one launch of ``g`` generations on a batch of
-halo-extended full-width row bands (:func:`slab_step_kernel`,
-``csrc/life_slab.cu``), the step of the batched lane runners in
-:mod:`..parallel.batched`.
+and of their slab modes with ``dead_band``: one launch of ``g``
+generations on a batch of halo-extended full-width row bands, each with
+its own edge code where the caller gives one per band --
+
+- B2, ``_make_kernel`` / ``make_pallas_slab_step``: B/S words
+  (:func:`slab_step_kernel`, ``csrc/life_slab.cu``), the step of the
+  batched lane runners in :mod:`..parallel.batched` and of the sharded
+  band runner in :mod:`..parallel.sharded`;
+- B3 slab, ``_make_gen_kernel`` / ``make_pallas_gen_slab_step``:
+  Generations plane stacks (:func:`slab_step_generations_kernel`, the
+  slab instantiations of ``csrc/life_generations.cu``);
+- B4 slab, ``_make_ltl_kernel`` / ``make_ltl_pallas_slab_step``: binary
+  LtL words with ``r*g``-row halos (:func:`slab_step_ltl_kernel`, the slab
+  instantiation of ``csrc/life_ltl.cu``).
 
 One launch advances ``g`` generations: each CUDA block loads its tile plus
 a halo (``g`` rows and one word per side for the 3x3 kernels, ``r*g`` rows
@@ -28,9 +37,10 @@ shorter launch. ``_build`` compiles each source with ``nvcc`` at first use.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version -- the kernel's own algorithm (same tiles, modulo-wrapped halo
-gather, DEAD re-zero every generation, shrinking slab steps of
-:mod:`.packed`, :mod:`.packed_generations` or :mod:`.packed_ltl`, shorter
-last launch) in plain torch -- only for a CPU tensor.
+gather, DEAD re-zero every generation or the dead band of a slab,
+shrinking slab steps of :mod:`.packed`, :mod:`.packed_generations` or
+:mod:`.packed_ltl`, shorter last launch) in plain torch -- only for a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -70,10 +80,12 @@ _MAX_GRID_Z = 65535
 
 # Launches of each CUDA kernel in this process: its wrapper adds one per
 # launch, nothing else touches them except a caller resetting them to 0.
-KERNEL_LAUNCHES = 0        # B1, life_packed
-GENERATIONS_LAUNCHES = 0   # B3, life_generations
-LTL_LAUNCHES = 0           # B4, life_ltl
-SLAB_LAUNCHES = 0          # B2, life_slab
+KERNEL_LAUNCHES = 0             # B1, life_packed
+GENERATIONS_LAUNCHES = 0        # B3, life_generations, full grid
+LTL_LAUNCHES = 0                # B4, life_ltl, full grid
+SLAB_LAUNCHES = 0               # B2, life_slab
+GENERATIONS_SLAB_LAUNCHES = 0   # B3, life_generations, slab mode
+LTL_SLAB_LAUNCHES = 0           # B4, life_ltl, slab mode
 
 _libs: dict = {}
 
@@ -167,6 +179,19 @@ def _slab_smem(g: int):
     return lambda th, tw: 2 * (th + 2 * g) * (tw + 4) * 4   # as B1's slabs
 
 
+def _even_rows(He: int, tile: Tuple[int, int], smem) -> Tuple[int, int]:
+    """``tile`` narrowed to a ``Wp``-word band by the caller, its rows
+    evened out over the ``He`` extended rows: as many row tiles as
+    ``He / th`` rounds to, or, where those no longer fit in shared memory,
+    as many as it rounds up to."""
+    th, tw = tile
+    for n in (max(1, round(He / th)), -(-He // th)):
+        even = -(-He // n)
+        if smem(even, tw) <= _SMEM_LIMIT:
+            return even, tw
+    return th, tw
+
+
 def _resolve_slab(gens: int, He: int, Wp: int,
                   tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
     """(g, th, tw) of the B2 kernel for ``(He, Wp)`` bands."""
@@ -190,6 +215,81 @@ def supported_slab(shape, gens: int, *, batch: int = 1,
         return False
     try:
         _, th, _ = _resolve_slab(gens, He, Wp, tile)
+    except ValueError:
+        return False
+    return -(-He // th) <= _MAX_GRID_Y
+
+
+def _resolve_generations_slab(planes: int, gens: int, He: int, Wp: int,
+                              tile: Optional[Tuple[int, int]]
+                              ) -> Tuple[int, int, int]:
+    """(g, th, tw) of the B3 slab kernel for ``(planes, He, Wp)`` bands:
+    the full-grid kernel's tile (shrunk until the 2*b slabs fit), no wider
+    than the band, its rows evened out over the band."""
+    g = _depth(gens, DEFAULT_GENERATIONS_GENS_PER_CALL)
+
+    def smem(th, tw):
+        return 2 * planes * (th + 2 * g) * (tw + 4) * 4
+
+    if tile is None:
+        th, tw = _fit_tile(DEFAULT_TILE, smem)
+        tile = _even_rows(He, (th, max(1, min(tw, Wp))), smem)
+    th, tw = _checked_tile(tile, smem,
+                           f"{planes} planes at {g} generations per call")
+    return g, th, tw
+
+
+def _ltl_smem(radius: int, g: int):
+    hw = _halo_words(radius, g)
+    return lambda th, tw: 2 * (th + 2 * radius * g) * (tw + 2 * hw + 2) * 4
+
+
+def _resolve_ltl_slab(rule: LtLRule, gens: int, He: int, Wp: int,
+                      tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """(g, th, tw) of the B4 slab kernel for ``(He, Wp)`` bands: the
+    full-grid kernel's tile, no wider than the band, its rows evened out
+    over the band."""
+    g = _depth(gens, DEFAULT_LTL_GENS_PER_CALL)
+    smem = _ltl_smem(rule.radius, g)
+    if tile is None:
+        th, tw = _fit_tile(DEFAULT_LTL_TILE, smem)
+        tile = _even_rows(He, (th, max(1, min(tw, Wp))), smem)
+    th, tw = _checked_tile(tile, smem,
+                           f"radius {rule.radius} at {g} generations per call")
+    return g, th, tw
+
+
+def supported_generations_slab(shape, planes: int, gens: int, *,
+                               batch: int = 1,
+                               tile: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether the B3 slab kernel takes ``batch`` halo-extended ``(He,
+    Wp)`` bands of ``planes`` bit-planes at ``gens`` generations per
+    launch: 2..8 planes, 1..32 generations, a tile whose 2*b slabs fit in
+    shared memory, and a launch grid of at most 65535 row tiles and 65535
+    bands."""
+    He, Wp = shape
+    if (not 2 <= planes <= 8 or He < 1 or Wp < 1
+            or not 1 <= batch <= _MAX_GRID_Z):
+        return False
+    try:
+        _, th, _ = _resolve_generations_slab(planes, gens, He, Wp, tile)
+    except ValueError:
+        return False
+    return -(-He // th) <= _MAX_GRID_Y
+
+
+def supported_ltl_slab(shape, rule, gens: int, *, batch: int = 1,
+                       tile: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether the B4 slab kernel takes ``rule`` on ``batch``
+    halo-extended ``(He, Wp)`` bands at ``gens`` generations per launch:
+    what :func:`supported_ltl` asks of the rule and the tile, and a launch
+    grid of at most 65535 row tiles and 65535 bands."""
+    He, Wp = shape
+    if (not _ltl_rule_fits(rule) or He < 1 or Wp < 1
+            or not 1 <= batch <= _MAX_GRID_Z):
+        return False
+    try:
+        _, th, _ = _resolve_ltl_slab(rule, gens, He, Wp, tile)
     except ValueError:
         return False
     return -(-He // th) <= _MAX_GRID_Y
@@ -226,6 +326,14 @@ def _boundaries(intervals) -> List[int]:
     return [b for lo, hi in intervals for b in (lo, hi + 1)]
 
 
+def _ltl_rule_fits(rule) -> bool:
+    """Binary LtL (C >= 3 has no kernel) with at most ``MAX_LTL_BOUNDS //
+    2`` intervals per set."""
+    return (isinstance(rule, LtLRule) and rule.states == 2
+            and len(_boundaries(rule.born_intervals)) <= MAX_LTL_BOUNDS
+            and len(_boundaries(rule.survive_intervals)) <= MAX_LTL_BOUNDS)
+
+
 def supported_ltl(shape, rule, *, tile: Optional[Tuple[int, int]] = None,
                   gens_per_call: Optional[int] = None) -> bool:
     """Whether the LtL kernel takes ``rule`` on a packed ``(H, Wp)`` grid:
@@ -233,9 +341,7 @@ def supported_ltl(shape, rule, *, tile: Optional[Tuple[int, int]] = None,
     ``MAX_LTL_BOUNDS // 2`` intervals per set, a tile that fits in shared
     memory, and row tiles that fit the launch grid."""
     H, Wp = shape
-    if (not isinstance(rule, LtLRule) or rule.states != 2 or H < 1 or Wp < 1
-            or len(_boundaries(rule.born_intervals)) > MAX_LTL_BOUNDS
-            or len(_boundaries(rule.survive_intervals)) > MAX_LTL_BOUNDS):
+    if not _ltl_rule_fits(rule) or H < 1 or Wp < 1:
         return False
     try:
         _, th, _ = _resolve_ltl(rule, gens_per_call, tile)
@@ -250,7 +356,7 @@ def _check(p: torch.Tensor, dims: int = 2) -> None:
     if p.dtype != torch.int32:
         raise TypeError(f"packed words must be int32, got {p.dtype}")
     if p.dim() != dims:
-        want = "(H, W/32)" if dims == 2 else "(b, H, W/32)"
+        want = {2: "(H, W/32)", 3: "(b, H, W/32)", 4: "(B, b, He, W/32)"}[dims]
         raise ValueError(f"packed grid must be {dims}D {want}, got {tuple(p.shape)}")
     if not p.is_contiguous():
         raise ValueError("packed grid must be contiguous")
@@ -288,9 +394,9 @@ def _rezero(slab: torch.Tensor, masks, shrunk: int) -> torch.Tensor:
     (None: keep the axis), ``shrunk`` rows per side having been consumed
     so far."""
     row_in, col_in = masks
-    if row_in is not None:
-        L = row_in.shape[1]
-        slab = torch.where(row_in[:, None, shrunk:L - shrunk, None], slab, 0)
+    if row_in is not None:   # (..., nty, L): leading dimensions per band
+        L = row_in.shape[-1]
+        slab = torch.where(row_in[..., None, shrunk:L - shrunk, None], slab, 0)
     if col_in is not None:
         slab = torch.where(col_in[None, :, None, :], slab, 0)
     return slab
@@ -395,8 +501,27 @@ def multi_step_ltl_reference(
     return p
 
 
+def _live_rows(He: int, th: int, halo: int, edge_code,
+               device) -> Optional[torch.Tensor]:
+    """The extended rows a slab keeps live before each generation, outside
+    its dead band (rows < ``halo`` under edge-code bit 0, >= ``He - halo``
+    under bit 1): None for code 0, an ``(nty, L)`` mask for one code, a
+    ``(B, nty, L)`` mask for a ``(B,)`` tensor of codes, one per band."""
+    r = _tile_index(He, th, halo, device)
+    if isinstance(edge_code, torch.Tensor):
+        code = edge_code.to(device=device, dtype=torch.int64)[:, None, None]
+        top = torch.where(code & 1 != 0, halo, -He - halo)
+        bottom = torch.where(code & 2 != 0, He - halo, 2 * He + halo)
+        return (r >= top) & (r < bottom)
+    if not edge_code:
+        return None
+    top = halo if edge_code & 1 else -He - halo
+    bottom = He - halo if edge_code & 2 else 2 * He + halo
+    return (r >= top) & (r < bottom)
+
+
 def _slab_launch_reference(ext: torch.Tensor, gens: int, rule: Rule,
-                           topology: Topology, edge_code: int, th: int,
+                           topology: Topology, edge_code, th: int,
                            tw: int) -> torch.Tensor:
     """One B2 launch in plain torch: every tile of every band at once. Rows
     outside the band load as zeros and then evolve freely; the dead band
@@ -406,23 +531,73 @@ def _slab_launch_reference(ext: torch.Tensor, gens: int, rule: Rule,
     He, Wp = ext.shape[-2:]
     slab, (_, col_in) = _tiles(ext, gens, 1, th, tw, topology,
                                rows=Topology.DEAD)
-    r = _tile_index(He, th, gens, ext.device)
-    live_rows = None
-    if edge_code:
-        top = gens if edge_code & 1 else -He - gens
-        bottom = He - gens if edge_code & 2 else 2 * He + gens
-        live_rows = (r >= top) & (r < bottom)
+    live_rows = _live_rows(He, th, gens, edge_code, ext.device)
     for k in range(gens):
         slab = step_packed_slab(_rezero(slab, (live_rows, col_in), k), rule,
                                 Topology.DEAD)
     return _untile(slab, 1, tw, He, Wp)
 
 
-def _check_slab(ext: torch.Tensor, edge_code: int) -> None:
-    _check(ext, dims=3)
-    if int(edge_code) not in (0, 1, 2, 3):
+def _generations_slab_launch_reference(ext: torch.Tensor, gens: int,
+                                       rule: GenRule, topology: Topology,
+                                       edge_code, th: int,
+                                       tw: int) -> torch.Tensor:
+    """One B3 slab launch in plain torch on a ``(B, b, He, Wp)`` batch:
+    B2's closure (zero rows beyond the band at load, the dead band before
+    every generation) in every plane."""
+    B, b, He, Wp = ext.shape
+    slab, (_, col_in) = _tiles(ext, gens, 1, th, tw, topology,
+                               rows=Topology.DEAD)
+    live_rows = _live_rows(He, th, gens, edge_code, ext.device)
+    if live_rows is not None and live_rows.dim() == 3:
+        live_rows = live_rows[:, None]    # the same rows in every plane
+    for k in range(gens):
+        slab = _rezero(slab, (live_rows, col_in), k)
+        slab = torch.stack(step_planes_slab(
+            tuple(slab[:, j] for j in range(b)), rule, Topology.DEAD), dim=1)
+    return _untile(slab, 1, tw, He, Wp)
+
+
+def _ltl_slab_launch_reference(ext: torch.Tensor, gens: int, rule: LtLRule,
+                               topology: Topology, edge_code, th: int,
+                               tw: int) -> torch.Tensor:
+    """One B4 slab launch in plain torch on a ``(B, He, Wp)`` batch: halo
+    and dead band ``r*gens`` rows deep, the slab shrinking ``r`` rows per
+    side and generation."""
+    He, Wp = ext.shape[-2:]
+    r, hw = rule.radius, _halo_words(rule.radius, gens)
+    slab, (_, col_in) = _tiles(ext, r * gens, hw, th, tw, topology,
+                               rows=Topology.DEAD)
+    live_rows = _live_rows(He, th, r * gens, edge_code, ext.device)
+    for k in range(gens):
+        slab = step_ltl_packed_slab(_rezero(slab, (live_rows, col_in), r * k),
+                                    rule, Topology.DEAD)
+    return _untile(slab, hw, tw, He, Wp)
+
+
+def _check_slab(ext: torch.Tensor, edge_code, dims: int = 3) -> None:
+    """A ``dims``-D int32 band batch and its edge code: an int 0..3 for
+    every band, or a ``(B,)`` int32 tensor of codes on the batch's device
+    (bits above bit 1 are ignored; the values are not read here, so a
+    device tensor costs no host sync)."""
+    _check(ext, dims=dims)
+    if isinstance(edge_code, torch.Tensor):
+        if (edge_code.dtype != torch.int32 or edge_code.dim() != 1
+                or edge_code.shape[0] != ext.shape[0]
+                or edge_code.device != ext.device
+                or not edge_code.is_contiguous()):
+            raise ValueError(
+                f"per-band edge codes must be a contiguous ({ext.shape[0]},) "
+                f"int32 tensor on {ext.device}, got {edge_code.dtype} "
+                f"{tuple(edge_code.shape)} on {edge_code.device}")
+    elif int(edge_code) not in (0, 1, 2, 3):
         raise ValueError(
             f"edge_code is bit 0 (top band) | bit 1 (bottom band), got {edge_code}")
+
+
+def _edge(edge_code):
+    """An edge code as the plain versions take it: the tensor, or an int."""
+    return edge_code if isinstance(edge_code, torch.Tensor) else int(edge_code)
 
 
 def slab_step_reference(
@@ -431,7 +606,7 @@ def slab_step_reference(
     *,
     rule: Rule,
     topology: Topology = Topology.TORUS,
-    edge_code: int = 0,
+    edge_code=0,
     tile: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """One B2 launch, ``gens`` generations of the ``(B, He, W/32)`` batch of
@@ -439,7 +614,45 @@ def slab_step_reference(
     device (see :func:`slab_step_kernel`)."""
     _check_slab(ext, edge_code)
     g, th, tw = _resolve_slab(gens, ext.shape[1], ext.shape[2], tile)
-    return _slab_launch_reference(ext, g, rule, topology, int(edge_code), th, tw)
+    return _slab_launch_reference(ext, g, rule, topology, _edge(edge_code),
+                                  th, tw)
+
+
+def slab_step_generations_reference(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: GenRule,
+    topology: Topology = Topology.TORUS,
+    edge_code=0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One B3 slab launch, ``gens`` generations of the ``(B, b, He, W/32)``
+    batch of halo-extended plane stacks, by the kernel's algorithm in
+    plain torch on any device (see :func:`slab_step_generations_kernel`)."""
+    _check_generations_slab(ext, rule, edge_code)
+    g, th, tw = _resolve_generations_slab(ext.shape[1], gens, ext.shape[2],
+                                          ext.shape[3], tile)
+    return _generations_slab_launch_reference(ext, g, rule, topology,
+                                              _edge(edge_code), th, tw)
+
+
+def slab_step_ltl_reference(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: LtLRule,
+    topology: Topology = Topology.TORUS,
+    edge_code=0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One B4 slab launch, ``gens`` generations of the ``(B, He, W/32)``
+    batch of halo-extended bands, by the kernel's algorithm in plain torch
+    on any device (see :func:`slab_step_ltl_kernel`)."""
+    _check_ltl_slab(ext, rule, edge_code)
+    g, th, tw = _resolve_ltl_slab(rule, gens, ext.shape[1], ext.shape[2], tile)
+    return _ltl_slab_launch_reference(ext, g, rule, topology,
+                                      _edge(edge_code), th, tw)
 
 
 def _check_generations(planes: torch.Tensor, rule: GenRule) -> None:
@@ -452,25 +665,65 @@ def _check_generations(planes: torch.Tensor, rule: GenRule) -> None:
 
 def _check_ltl(p: torch.Tensor, rule: LtLRule) -> None:
     _check(p)
+    _check_binary_ltl(rule)
+
+
+def _check_binary_ltl(rule: LtLRule) -> None:
     if rule.states != 2:
         raise ValueError(
             f"the LtL kernel is binary (1 bit/cell); {rule.notation} has "
             f"{rule.states} states")
 
 
+def _check_generations_slab(ext: torch.Tensor, rule: GenRule,
+                            edge_code) -> None:
+    _check_slab(ext, edge_code, dims=4)
+    if ext.shape[1] != n_planes(rule.states):
+        raise ValueError(
+            f"{rule.notation} needs {n_planes(rule.states)} bit-planes, got "
+            f"stacks of {ext.shape[1]}")
+
+
+def _check_ltl_slab(ext: torch.Tensor, rule: LtLRule, edge_code) -> None:
+    _check_slab(ext, edge_code)
+    _check_binary_ltl(rule)
+
+
 # -- kernels -----------------------------------------------------------------
 
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 
-def _library(name: str, argtypes):
-    """The built ``csrc/<name>.cu`` with its launch function typed."""
+# The launch functions of each csrc/<name>.cu and their C argument types.
+_SIGNATURES = {
+    "life_packed": {
+        "life_packed_launch": [_P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _P]},
+    "life_slab": {
+        "life_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I,
+                             _P, _P]},
+    "life_generations": {
+        "life_generations_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
+                                    _U, _I, _P],
+        "life_generations_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _U, _U, _U, _I, _I, _P, _P]},
+    "life_ltl": {
+        "life_ltl_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _I, _P, _I, _P],
+        "life_ltl_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _I, _P, _I, _I, _P, _P]},
+}
+
+
+def _library(name: str):
+    """The built ``csrc/<name>.cu`` with its launch functions typed."""
     lib = _libs.get(name)
     if lib is None:
         from .. import _build
 
         lib = _build.load(name).lib
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = argtypes
-        launch.restype = ctypes.c_int
+        for fn, argtypes in _SIGNATURES[name].items():
+            launch = getattr(lib, fn)
+            launch.argtypes = argtypes
+            launch.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -484,11 +737,24 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message} (cudaError {err})")
 
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _edge_args(edge_code) -> Tuple[int, Optional[int]]:
+    """(the code for every band, the device pointer of per-band codes or
+    None) as the slab launch functions take them."""
+    if isinstance(edge_code, torch.Tensor):
+        return 0, edge_code.data_ptr()
+    return int(edge_code), None
+
+
+def _ltl_rule_args(rule: LtLRule):
+    born = _boundaries(rule.born_intervals)
+    surv = _boundaries(rule.survive_intervals)
+    return (rule.radius, int(rule.neighborhood == "N"), int(rule.middle),
+            len(born), (ctypes.c_int * max(1, len(born)))(*born),
+            len(surv), (ctypes.c_int * max(1, len(surv)))(*surv))
 
 
 def _launch(lib, src: torch.Tensor, dst: torch.Tensor, gens: int, rule: Rule,
@@ -517,14 +783,9 @@ def _launch_generations(lib, src, dst, gens, rule: GenRule, topology, th, tw):
 def _launch_ltl(lib, src, dst, gens, rule: LtLRule, topology, th, tw):
     global LTL_LAUNCHES
     H, Wp = src.shape
-    born = _boundaries(rule.born_intervals)
-    surv = _boundaries(rule.survive_intervals)
     err = lib.life_ltl_launch(
         src.data_ptr(), dst.data_ptr(), H, Wp, gens, th, tw,
-        _halo_words(rule.radius, gens), rule.radius,
-        int(rule.neighborhood == "N"), int(rule.middle),
-        len(born), (ctypes.c_int * max(1, len(born)))(*born),
-        len(surv), (ctypes.c_int * max(1, len(surv)))(*surv),
+        _halo_words(rule.radius, gens), *_ltl_rule_args(rule),
         int(topology is Topology.DEAD), _stream(src))
     _raise_on(lib, "life_ltl", err)
     LTL_LAUNCHES += 1
@@ -536,9 +797,33 @@ def _launch_slab(lib, src, dst, gens, rule: Rule, topology, edge_code, th, tw):
     err = lib.life_slab_launch(
         src.data_ptr(), dst.data_ptr(), B, He, Wp, gens, th, tw,
         rule.birth_mask, rule.survive_mask, int(topology is Topology.DEAD),
-        int(edge_code), _stream(src))
+        *_edge_args(edge_code), _stream(src))
     _raise_on(lib, "life_slab", err)
     SLAB_LAUNCHES += 1
+
+
+def _launch_generations_slab(lib, src, dst, gens, rule: GenRule, topology,
+                             edge_code, th, tw):
+    global GENERATIONS_SLAB_LAUNCHES
+    B, b, He, Wp = src.shape
+    err = lib.life_generations_slab_launch(
+        src.data_ptr(), dst.data_ptr(), B, b, He, Wp, gens, th, tw,
+        rule.birth_mask, rule.survive_mask, rule.states,
+        int(topology is Topology.DEAD), *_edge_args(edge_code), _stream(src))
+    _raise_on(lib, "life_generations", err)
+    GENERATIONS_SLAB_LAUNCHES += 1
+
+
+def _launch_ltl_slab(lib, src, dst, gens, rule: LtLRule, topology, edge_code,
+                     th, tw):
+    global LTL_SLAB_LAUNCHES
+    B, He, Wp = src.shape
+    err = lib.life_ltl_slab_launch(
+        src.data_ptr(), dst.data_ptr(), B, He, Wp, gens, th, tw,
+        _halo_words(rule.radius, gens), *_ltl_rule_args(rule),
+        int(topology is Topology.DEAD), *_edge_args(edge_code), _stream(src))
+    _raise_on(lib, "life_ltl", err)
+    LTL_SLAB_LAUNCHES += 1
 
 
 def _run(p: torch.Tensor, plan: List[int], launch) -> torch.Tensor:
@@ -554,6 +839,15 @@ def _run(p: torch.Tensor, plan: List[int], launch) -> torch.Tensor:
             launch(src, dst, gens)
             src = dst
     return src
+
+
+def _run_once(ext: torch.Tensor, launch) -> torch.Tensor:
+    """One slab launch from ``ext`` into a new tensor on the current
+    stream."""
+    out = torch.empty_like(ext)
+    with torch.cuda.device(ext.device):
+        launch(ext, out)
+    return out
 
 
 def _on_card(p: torch.Tensor, ok: bool, why: str) -> None:
@@ -590,8 +884,7 @@ def multi_step_kernel(
              f"packed shape {tuple(p.shape)} exceeds the kernel's launch grid "
              f"at tile {(th, tw)}")
     plan = _launch_plan(n, g)
-    lib = _library("life_packed", [_P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _P]) \
-        if plan else None
+    lib = _library("life_packed") if plan else None
     return _run(p, plan, lambda src, dst, gens: _launch(
         lib, src, dst, gens, rule, topology, th, tw))
 
@@ -625,9 +918,7 @@ def multi_step_generations_kernel(
              f"plane stack {tuple(planes.shape)} exceeds the Generations "
              f"kernel's launch grid at tile {(th, tw)}")
     plan = _launch_plan(n, g)
-    lib = _library("life_generations",
-                   [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U, _I, _P]) \
-        if plan else None
+    lib = _library("life_generations") if plan else None
     return _run(planes, plan, lambda src, dst, gens: _launch_generations(
         lib, src, dst, gens, rule, topology, th, tw))
 
@@ -658,16 +949,14 @@ def multi_step_ltl_kernel(
              f"{tuple(p.shape)} at tile {(th, tw)} (at most "
              f"{MAX_LTL_BOUNDS // 2} intervals per set)")
     plan = _launch_plan(n, g)
-    lib = _library("life_ltl", [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _P, _I, _P, _I, _P]) if plan else None
+    lib = _library("life_ltl") if plan else None
     return _run(p, plan, lambda src, dst, gens: _launch_ltl(
         lib, src, dst, gens, rule, topology, th, tw))
 
 
 def load_slab_kernel():
     """The B2 kernel's library, built by ``nvcc`` first if needed."""
-    return _library("life_slab",
-                    [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _P])
+    return _library("life_slab")
 
 
 def slab_step_kernel(
@@ -676,7 +965,7 @@ def slab_step_kernel(
     *,
     rule: Rule,
     topology: Topology = Topology.TORUS,
-    edge_code: int = 0,
+    edge_code=0,
     tile: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Advance a ``(B, He, W/32)`` int32 batch of halo-extended full-width
@@ -686,8 +975,11 @@ def slab_step_kernel(
     Rows outside ``[0, He)`` are zero at the start and evolve freely;
     ``edge_code`` bit 0 (bit 1) zeroes the extended rows ``< gens`` (``>=
     He - gens``) before every generation, the dead exterior of a band at
-    the grid's top (bottom) edge. ``topology`` is the horizontal closure.
-    The caller keeps rows ``[gens, He - gens)``.
+    the grid's top (bottom) edge. ``edge_code`` is an int for every band
+    or a ``(B,)`` int32 tensor on the batch's device, one code per band
+    (the bands of a mesh: 1 for the top one, 2 for the bottom one, 0
+    between). ``topology`` is the horizontal closure. The caller keeps
+    rows ``[gens, He - gens)``.
 
     On a CUDA tensor: one launch of the Hopper kernel over the whole batch
     into a new tensor on the current stream. On a CPU tensor: the plain
@@ -695,14 +987,82 @@ def slab_step_kernel(
     _check_slab(ext, edge_code)
     g, th, tw = _resolve_slab(gens, ext.shape[1], ext.shape[2], tile)
     if ext.device.type == "cpu":
-        return _slab_launch_reference(ext, g, rule, topology, int(edge_code),
+        return _slab_launch_reference(ext, g, rule, topology, _edge(edge_code),
                                       th, tw)
     _on_card(ext, supported_slab(ext.shape[1:], g, batch=ext.shape[0],
                                  tile=(th, tw)),
              f"band batch {tuple(ext.shape)} exceeds the slab kernel's launch "
              f"grid at tile {(th, tw)}")
     lib = load_slab_kernel()
-    out = torch.empty_like(ext)
-    with torch.cuda.device(ext.device):
-        _launch_slab(lib, ext, out, g, rule, topology, edge_code, th, tw)
-    return out
+    return _run_once(ext, lambda src, dst: _launch_slab(
+        lib, src, dst, g, rule, topology, edge_code, th, tw))
+
+
+def slab_step_generations_kernel(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: GenRule,
+    topology: Topology = Topology.TORUS,
+    edge_code=0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Advance a ``(B, b, He, W/32)`` int32 batch of halo-extended
+    full-width bit-plane stacks by ``gens`` generations of a Generations
+    rule: the counterpart of ``make_pallas_gen_slab_step`` (``dead_band``
+    is ``edge_code != 0``). The closure is :func:`slab_step_kernel`'s in
+    every plane; the caller keeps rows ``[gens, He - gens)``.
+
+    On a CUDA tensor: one launch of the Hopper kernel over the whole batch
+    into a new tensor on the current stream. On a CPU tensor: the plain
+    version, :func:`slab_step_generations_reference`. Any other device
+    raises."""
+    _check_generations_slab(ext, rule, edge_code)
+    B, b, He, Wp = ext.shape
+    g, th, tw = _resolve_generations_slab(b, gens, He, Wp, tile)
+    if ext.device.type == "cpu":
+        return _generations_slab_launch_reference(
+            ext, g, rule, topology, _edge(edge_code), th, tw)
+    _on_card(ext, supported_generations_slab((He, Wp), b, g, batch=B,
+                                             tile=(th, tw)),
+             f"plane-stack batch {tuple(ext.shape)} exceeds the Generations "
+             f"slab kernel's launch grid at tile {(th, tw)}")
+    lib = _library("life_generations")
+    return _run_once(ext, lambda src, dst: _launch_generations_slab(
+        lib, src, dst, g, rule, topology, edge_code, th, tw))
+
+
+def slab_step_ltl_kernel(
+    ext: torch.Tensor,
+    gens: int,
+    *,
+    rule: LtLRule,
+    topology: Topology = Topology.TORUS,
+    edge_code=0,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Advance a ``(B, He, W/32)`` int32 batch of halo-extended full-width
+    bands by ``gens`` generations of a binary Larger-than-Life rule of
+    radius ``r``: the counterpart of ``make_ltl_pallas_slab_step``
+    (``dead_band`` is ``edge_code != 0``). Halo and dead band are ``r *
+    gens`` rows deep; otherwise the closure is :func:`slab_step_kernel`'s.
+    The caller keeps rows ``[r*gens, He - r*gens)``.
+
+    On a CUDA tensor: one launch of the Hopper kernel over the whole batch
+    into a new tensor on the current stream. On a CPU tensor: the plain
+    version, :func:`slab_step_ltl_reference`. Any other device raises."""
+    _check_ltl_slab(ext, rule, edge_code)
+    B, He, Wp = ext.shape
+    g, th, tw = _resolve_ltl_slab(rule, gens, He, Wp, tile)
+    if ext.device.type == "cpu":
+        return _ltl_slab_launch_reference(ext, g, rule, topology,
+                                          _edge(edge_code), th, tw)
+    _on_card(ext, supported_ltl_slab((He, Wp), rule, g, batch=B,
+                                     tile=(th, tw)),
+             f"the LtL slab kernel cannot take {rule.notation} on band batch "
+             f"{tuple(ext.shape)} at tile {(th, tw)} (at most "
+             f"{MAX_LTL_BOUNDS // 2} intervals per set, 65535 bands and "
+             "65535 row tiles)")
+    lib = _library("life_ltl")
+    return _run_once(ext, lambda src, dst: _launch_ltl_slab(
+        lib, src, dst, g, rule, topology, edge_code, th, tw))

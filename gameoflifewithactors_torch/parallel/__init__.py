@@ -1,3 +1,5 @@
-"""Batch-of-universes runners on one device: the batch is a leading tensor
-dimension (:mod:`.batched`), with the one-device row-halo exchange of
-:mod:`.halo`. Multi-device meshes are not ported yet (ROADMAP A12)."""
+"""Batches and meshes. :mod:`.batched` steps a batch of independent
+universes on one device (the serving lanes); :mod:`.mesh` places one grid
+on a single-controller mesh of devices, :mod:`.halo` exchanges halos
+between its positions and :mod:`.sharded` steps it, on full-width row
+bands through the slab kernels or on 2D tiles in plain torch."""

@@ -1,32 +1,162 @@
-"""The one-device halo exchange of a batch of row bands.
+"""Halo exchange between the positions of a mesh, rows first.
 
-Counterpart of ``gameoflifewithactors_tpu.parallel.halo`` on a mesh of
-one band: a band's neighbours above and below are itself, so TORUS wraps
-the band's own rows and DEAD, where the reference's ``ppermute`` finds no
-source, puts zeros. Multi-device exchange (``torch.distributed``) waits
-for ROADMAP A12.
+Counterpart of ``gameoflifewithactors_tpu.parallel.halo``, where each
+device ``ppermute``s strips of its tile to its mesh neighbours inside
+``shard_map``. Here one process holds every position's block
+(:class:`.mesh.ShardedGrid`: one stacked tensor per device), and a
+position's halo is its neighbour's edge strip, taken from whichever
+device's stack holds that neighbour:
+
+- :func:`exchange_rows` -- ``depth`` rows above and below each block,
+  along ROW_AXIS or the flattened band axis ``(ROW_AXIS, COL_AXIS)``;
+- :func:`exchange_cols` -- ``depth`` columns (words, when packed) left and
+  right of the row-extended blocks, along COL_AXIS, so the corner blocks
+  ride along with no diagonal transfer;
+- :func:`exchange_halo` -- both, the two-phase exchange.
+
+Under TORUS the neighbour order wraps; under DEAD the blocks at the edge
+get zeros where ``ppermute`` finds no source, which is the all-dead
+boundary. A block is ``(..., rows, cols)``: words, cells or a ``(b, rows,
+cols)`` plane stack alike, so the JAX ``*_stack`` forms are these same
+functions. The exchange depth must not exceed a block's height.
+
+The one-band helpers :func:`exchange_rows_stack` and
+:func:`exchange_halo_stack` serve the batched serving lanes, whose batch
+members are independent universes, each its own single-band mesh.
 """
 
 from __future__ import annotations
 
+from typing import Callable, List, Optional, Sequence
+
 import torch
 
 from ..ops.stencil import Topology
+from .mesh import COL_AXIS, ROW_AXIS, Mesh
 
 
 def band_edge_code(nbands: int = 1, index: int = 0) -> int:
     """The global-edge code of band ``index`` of ``nbands`` row bands, as
-    the B2 kernel takes it (``cuda_stencil.slab_step_kernel``): bit 0 =
+    the slab kernels take it (``cuda_stencil.slab_step_kernel``): bit 0 =
     the band holds the grid's top rows, bit 1 = its bottom rows. One band
     is both: 3."""
     return (1 if index == 0 else 0) | (2 if index == nbands - 1 else 0)
+
+
+def band_edge_codes(mesh: Mesh) -> List[torch.Tensor]:
+    """Per device of ``mesh``, the ``(k,)`` int32 edge codes of the bands
+    it holds (flattened band axis, x-major), on that device: the slab
+    kernels' per-band operand. Built once per runner, so stepping reads no
+    code back to the host."""
+    nb = mesh.size
+    return [torch.tensor([band_edge_code(nb, p) for p in positions],
+                         dtype=torch.int32, device=device)
+            for device, positions in mesh.groups]
+
+
+def _sources(mesh: Mesh, axis, step: int, wrap: bool) -> List[Optional[int]]:
+    """For every flat position, the flat position whose block sits
+    ``step`` places before it along ``axis`` (None past a DEAD edge)."""
+    nx, ny = mesh.shape[ROW_AXIS], mesh.shape[COL_AXIS]
+    out: List[Optional[int]] = []
+    for p in range(mesh.size):
+        i, j = divmod(p, ny)
+        if axis == ROW_AXIS:
+            k, n = i - step, nx
+        elif axis == COL_AXIS:
+            k, n = j - step, ny
+        elif tuple(axis) == (ROW_AXIS, COL_AXIS):
+            k, n = p - step, nx * ny
+        else:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        if not 0 <= k < n:
+            if not wrap:
+                out.append(None)
+                continue
+            k %= n
+        out.append(k * ny + j if axis == ROW_AXIS
+                   else i * ny + k if axis == COL_AXIS else k)
+    return out
+
+
+def _neighbour_strips(parts: Sequence[torch.Tensor], mesh: Mesh,
+                      sources: List[Optional[int]],
+                      strip: Callable[[torch.Tensor], torch.Tensor]
+                      ) -> List[torch.Tensor]:
+    """Per device, the stacked ``strip`` of each of its positions' source
+    blocks, zeros where a source is None. A source on another device
+    arrives by ``.to(device, non_blocking=True)``, a peer copy that only
+    a machine with several GPUs performs; between positions of one device
+    the same call returns the strip as it is, so one code path serves
+    both."""
+    out = []
+    for (device, positions), own in zip(mesh.groups, parts):
+        pieces = []
+        for p in positions:
+            q = sources[p]
+            if q is None:
+                pieces.append(torch.zeros_like(strip(own[:1])))
+            else:
+                g, s = mesh.slot_of[q]
+                pieces.append(strip(parts[g][s:s + 1]).to(
+                    device, non_blocking=True))
+        out.append(torch.cat(pieces))
+    return out
+
+
+def exchange_rows(parts: Sequence[torch.Tensor], mesh: Mesh,
+                  topology: Topology, axis=ROW_AXIS,
+                  depth: int = 1) -> List[torch.Tensor]:
+    """Per device, ``(k, ..., h, w)`` -> ``(k, ..., h + 2*depth, w)``:
+    north and south halos of ``depth`` rows from the neighbours along
+    ``axis`` (ROW_AXIS of a tiled grid, or the flattened band axis
+    ``(ROW_AXIS, COL_AXIS)`` of a banded one); ``depth <= h``."""
+    h = parts[0].shape[-2]
+    if depth > h:
+        raise ValueError(
+            f"halo depth {depth} exceeds the band height {h} (the exchange "
+            "needs depth <= band rows)")
+    wrap = topology is Topology.TORUS
+    # my north halo is my north neighbour's bottom strip: data flows +1
+    north = _neighbour_strips(parts, mesh, _sources(mesh, axis, 1, wrap),
+                              lambda t: t[..., h - depth:, :])
+    south = _neighbour_strips(parts, mesh, _sources(mesh, axis, -1, wrap),
+                              lambda t: t[..., :depth, :])
+    return [torch.cat([n, t, s], dim=-2)
+            for n, t, s in zip(north, parts, south)]
+
+
+def exchange_cols(ext: Sequence[torch.Tensor], mesh: Mesh,
+                  topology: Topology, depth: int = 1) -> List[torch.Tensor]:
+    """Per device, row-extended ``(k, ..., h', w)`` -> ``(k, ..., h', w +
+    2*depth)``: west and east halo columns from the neighbours along
+    COL_AXIS (the diagonal corners ride in the already-extended rows)."""
+    w = ext[0].shape[-1]
+    if depth > w:
+        raise ValueError(
+            f"halo depth {depth} exceeds the tile width {w}")
+    wrap = topology is Topology.TORUS
+    west = _neighbour_strips(ext, mesh, _sources(mesh, COL_AXIS, 1, wrap),
+                             lambda t: t[..., w - depth:])
+    east = _neighbour_strips(ext, mesh, _sources(mesh, COL_AXIS, -1, wrap),
+                             lambda t: t[..., :depth])
+    return [torch.cat([a, t, b], dim=-1) for a, t, b in zip(west, ext, east)]
+
+
+def exchange_halo(parts: Sequence[torch.Tensor], mesh: Mesh,
+                  topology: Topology, depth: int = 1) -> List[torch.Tensor]:
+    """The full two-phase exchange of a tiled grid: per device, ``(k, ...,
+    h, w)`` -> ``(k, ..., h + 2*depth, w + 2*depth)``."""
+    return exchange_cols(exchange_rows(parts, mesh, topology, depth=depth),
+                         mesh, topology, depth=depth)
 
 
 def exchange_rows_stack(stack: torch.Tensor, topology: Topology,
                         depth: int = 1) -> torch.Tensor:
     """``(b, h, w)`` -> ``(b, h + 2*depth, w)``: ``depth`` halo rows above
     and below each band (``depth <= h``), the band's own last and first
-    rows under TORUS, zeros under DEAD."""
+    rows under TORUS, zeros under DEAD -- every batch member a mesh of one
+    band (the serving lanes)."""
     if topology is Topology.TORUS:
         north, south = stack[:, -depth:], stack[:, :depth]
     else:
@@ -39,7 +169,7 @@ def exchange_halo_stack(stack: torch.Tensor, topology: Topology,
                         depth: int = 1) -> torch.Tensor:
     """``(b, h, w)`` -> ``(b, h + 2*depth, w + 2*depth)``: rows first, then
     the columns of the row-extended stack, so the corner blocks ride
-    along (the reference's two-phase exchange on one device)."""
+    along (the two-phase exchange of a one-position mesh per member)."""
     ext = exchange_rows_stack(stack, topology, depth)
     if topology is Topology.TORUS:
         west, east = ext[:, :, -depth:], ext[:, :, :depth]

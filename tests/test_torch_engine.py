@@ -110,9 +110,12 @@ def test_unported_families_and_backends_raise():
     # Generations and Larger than Life are ported (tests/test_torch_*_families.py)
     for rule in ["B2/S/C3", "brain", "bosco", "R2,C0,M1,S2..3,B3..3"]:
         tg.Engine(np.zeros((8, 32), np.uint8), rule, device="cpu")
+    from gameoflifewithactors_torch.parallel.mesh import make_mesh
+
     for kwargs in [
         dict(rule="W110"), dict(rule="rule30"),
-        dict(backend="sparse"), dict(backend="paged"), dict(mesh=object()),
+        dict(backend="sparse"), dict(backend="paged"),
+        dict(mesh=make_mesh((1, 1), ["cpu"]), backend="sparse"),
     ]:
         args = dict(rule="conway", **kwargs) if "rule" not in kwargs else dict(kwargs)
         rule = args.pop("rule")

@@ -48,7 +48,8 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "ops.packed_generations", "ops.packed_ltl", "obs.registry",
              "obs.spans", "obs.compile", "obs.flight", "obs.exporter",
              "obs.device", "resilience.supervisor", "parallel.halo",
-             "parallel.batched", "serve.session", "serve.admission",
+             "parallel.batched", "parallel.mesh", "parallel.sharded",
+             "serve.session", "serve.admission",
              "serve.lanes", "serve.service", "serve.frontend"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
@@ -63,7 +64,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(" ", 1)
-    assert int(count) >= 43   # every module: rule families, obs, serve, ...
+    assert int(count) >= 45   # every module: rule families, obs, serve, mesh, ...
     assert loaded.strip() == "[]"
 
 
