@@ -12,9 +12,10 @@ Phases, each unguarded (any failure exits non-zero before the last line):
 2. Each kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer words), over rules, topologies, shapes up to
    16384², generations per call, edge codes (one per batch and one per
-   band) and seam-crossing gliders; the slab forms of B3 and B4 on
-   batches of 1, 4 and 8 bands, b = 2..8 planes, radii 1, 2 and 5 and a
-   diamond, and a 4-band 16384² batch each.
+   band) and seam-crossing gliders; B4 and its slab form at every radius
+   1..7, box and diamond, M0 and M1, at g in {1, 2, 4}; the slab forms of
+   B3 and B4 on batches of 1, 4 and 8 bands, b = 2..8 planes, and a
+   4-band 16384² batch each.
 3. The main paths, each driven with every kernel's launch count set to 0
    just before and read just after: three ``GridCoordinator`` runs at
    16384² with a 50% random soup under TORUS, held against the kernel's
@@ -108,7 +109,34 @@ def gen_ops_per_word(rule) -> int:
     return fold + 14 + masks + fold + 3 + 2 * (b - 1) + eq + b + 1
 
 
-def ltl_ops_per_word(rule) -> int:
+def _csa_ops(n: int):
+    """(planes, ops) of packed.bit_sliced_sum over n one-bit planes: full
+    and half adders, 2 ops each."""
+    planes = ops = 0
+    while n:
+        carries = 0
+        while n >= 3:
+            n, carries, ops = n - 2, carries + 1, ops + 2
+        if n == 2:
+            n, carries, ops = 1, carries + 1, ops + 2
+        planes += 1
+        n = carries
+    return planes, ops
+
+
+def _rule_ops(rule, counts: int, comparators: int, m0: bool = True) -> int:
+    """The interval rule on a ``counts``-plane count: M0's subtraction (2
+    ops per plane, where ``m0`` says it is made), ``comparators``
+    comparators of 1 op per plane, an and-not per interval and an OR per
+    further interval of each set, and the final select."""
+    ops = 2 * counts if m0 and not rule.middle else 0
+    ops += comparators * counts
+    for intervals in (rule.born_intervals, rule.survive_intervals):
+        ops += len(intervals) + max(len(intervals) - 1, 0)
+    return ops + 1
+
+
+def ltl_tree_ops_per_word(rule) -> int:
     """The same count for one generation of a binary LtL rule, walking
     packed_ltl's formulation with only the plane counts of its bit-sliced
     numbers: box_counts_packed (a carry-save sum of the 2r+1 row-shifted
@@ -123,15 +151,8 @@ def ltl_ops_per_word(rule) -> int:
 
     def csa(n: int) -> int:             # packed.bit_sliced_sum of n planes
         nonlocal ops
-        planes = 0
-        while n:
-            carries = 0
-            while n >= 3:
-                n, carries, ops = n - 2, carries + 1, ops + 2
-            if n == 2:
-                n, carries, ops = 1, carries + 1, ops + 2
-            planes += 1
-            n = carries
+        planes, more = _csa_ops(n)
+        ops += more
         return planes
 
     def add(a: int, b: int) -> int:     # packed_ltl.bs_add
@@ -170,19 +191,58 @@ def ltl_ops_per_word(rule) -> int:
         for d in range(r + 1):
             term = sliding(1 if d == 0 else csa(2), 2 * (r - d) + 1)
             counts = term if counts is None else min(add(counts, term), nbits)
-    if not rule.middle:
-        ops += 2 * counts
-    for intervals in (rule.born_intervals, rule.survive_intervals):
-        for lo, hi in intervals:
-            ops += sum(counts for c in (lo, hi + 1) if 0 < c < 1 << counts) + 1
-        ops += max(len(intervals) - 1, 0)
-    return ops + 1
+    comparators = sum(1 for intervals in (rule.born_intervals,
+                                          rule.survive_intervals)
+                      for lo, hi in intervals for c in (lo, hi + 1)
+                      if 0 < c < 1 << counts)
+    return ops + _rule_ops(rule, counts, comparators)
+
+
+def ltl_sliding_ops_per_word(rule) -> int:
+    """The same count by the sliding column, the order of kernel B4 and of
+    packed_ltl.box_counts_sliding. Box: each row's horizontal window once
+    (2r funnel shifts, 1 op each, and the carry-save sum of the 2r+1
+    planes), added to a running count of C = bit_length((2r+1)^2) planes
+    and the leaving row's window subtracted (2 ops per count plane each);
+    diamond: the 2r+1 row windows of half-width r - |dy| summed directly
+    (the same windows, 2r ripple adds of 2 ops per count plane). Then the
+    rule on the distinct boundaries of both sets, shared between them: one
+    comparator of 1 op per count plane for each boundary inside the
+    count's range, and the and-nots, ORs and select of _rule_ops. M0 costs
+    nothing: its survival boundaries move up by one instead
+    (cuda_stencil._ltl_rule_encoding)."""
+    r = rule.radius
+
+    def window(a: int) -> int:
+        return 2 * a + _csa_ops(2 * a + 1)[1]
+
+    if rule.neighborhood == "M":
+        counts = ((2 * r + 1) ** 2).bit_length()
+        ops = window(r) + 2 * (2 * counts)
+    else:
+        counts = (2 * r * r + 2 * r + 1).bit_length()
+        ops = sum(window(r - abs(dy)) for dy in range(-r, r + 1)) \
+            + 2 * r * 2 * counts
+    shift = 0 if rule.middle else 1
+    bounds = {c for lo, hi in rule.born_intervals for c in (lo, hi + 1)} | {
+        c + shift for lo, hi in rule.survive_intervals for c in (lo, hi + 1)}
+    return ops + _rule_ops(rule, counts,
+                           sum(1 for c in bounds if 0 < c < 1 << counts), m0=False)
+
+
+def ltl_ops_per_word(rule) -> int:
+    """The least bitwise operations one generation of a binary LtL rule
+    needs per 32-cell word by a formulation the repo has: the JAX doubling
+    tree (:func:`ltl_tree_ops_per_word`) or the sliding column
+    (:func:`ltl_sliding_ops_per_word`)."""
+    return min(ltl_tree_ops_per_word(rule), ltl_sliding_ops_per_word(rule))
 
 
 def sass_counts(so_path: str, nvcc: str):
     """(SASS instructions in the library, and for each kernel function its
-    shortest loop that both loads and stores shared memory -- a kernel's
-    per-word, per-generation row loop -- as (label, instructions, LOP3s)),
+    shortest loop that both loads and stores shared memory and starts no
+    asynchronous copy (B4's tile load does) -- a kernel's per-word,
+    per-generation row loop -- as (label, instructions, LOP3s)),
     read with ``cuobjdump`` beside ``nvcc``. Each function's addresses
     start at 0, so loops are found within one function at a time; the
     label is the function's template arguments (``ILi2ELb1EE``: b = 2,
@@ -203,7 +263,8 @@ def sass_counts(so_path: str, nvcc: str):
                 continue
             body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
             if (any(re.search(r"\bLDS\b", t) for t in body)
-                    and any(re.search(r"\bSTS\b", t) for t in body)):
+                    and any(re.search(r"\bSTS\b", t) for t in body)
+                    and not any("LDGSTS" in t for t in body)):
                 if best is None or len(body) < best[0]:
                     best = (len(body), sum("LOP3" in t for t in body))
         if best is not None:
@@ -211,6 +272,19 @@ def sass_counts(so_path: str, nvcc: str):
             loops.append(((label.group(1) if label and label.group(1)
                            else "kernel"),) + best)
     return total, loops
+
+
+def ltl_rows(label: str, n: int) -> str:
+    """For a B4 instantiation (``ILi5ELb0ELb1EE``: radius 5, box, slab), its
+    row loop's instructions per output row: the box loop is unrolled over
+    the 2r+1 rows of its ring."""
+    m = re.fullmatch(r"ILi(\d)ELb([01])ELb([01])EE", label)
+    if not m:
+        return ""
+    rows = 1 if m.group(2) == "1" else 2 * int(m.group(1)) + 1
+    return f" ({n / rows:.1f} per row; r={m.group(1)}, " \
+           f"{'diamond' if m.group(2) == '1' else 'box'}, " \
+           f"{'slab' if m.group(3) == '1' else 'full grid'})"
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -277,6 +351,26 @@ def band_batch(grid, bands: int, depth: int, topology):
     h = grid.shape[-2] // bands
     return torch.stack([ext[..., i * h:(i + 1) * h + 2 * depth, :]
                         for i in range(bands)]).contiguous()
+
+
+def ltl_every_form():
+    """One binary LtL rule for each radius 1..7, box and diamond, M0 and M1
+    -- the 28 instantiations of kernel B4 and both rule paths' M0 branch
+    -- with Bosco's intervals scaled to the window (birth 0.28..0.37 of
+    it, survival 0.28..0.48)."""
+    from gameoflifewithactors_torch.models.ltl import LtLRule
+
+    rules = []
+    for r in range(1, 8):
+        for hood in "MN":
+            cells = (2 * r + 1) ** 2 if hood == "M" else 2 * r * (r + 1) + 1
+            lo = max(1, round(0.28 * cells))
+            for middle in (True, False):
+                rules.append(LtLRule(
+                    radius=r, born=(lo, max(lo, round(0.37 * cells))),
+                    survive=(lo, max(lo, round(0.48 * cells))), middle=middle,
+                    neighborhood=hood))
+    return rules
 
 
 def seed_cells(shape, seed: int, fill: float = 0.35) -> np.ndarray:
@@ -359,8 +453,9 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
 def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
     """Phase 2 for the slab forms of B3 and B4 against their plain
     versions: batches of 1, 4 and 8 bands with one code per batch (0, 3)
-    and one per band, B3 at b = 2..8 planes and g in {1, 3, 16}, B4 at
-    radius 1, 2 and 5 and a diamond and g in {1, 2, 4}; then a 4-band
+    and one per band, B3 at b = 2..8 planes and g in {1, 3, 16}, B4 on
+    named rules and at every radius 1..7, box and diamond, M0 and M1
+    (:func:`ltl_every_form`, on 4 bands), at g in {1, 2, 4}; then a 4-band
     16384^2 batch each, at the mesh main path's depth. Returns the largest
     error of each (0)."""
     import torch
@@ -394,10 +489,12 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
                 for topology in Topology:
                     for code in (0, 3, mesh_codes(batch, rng.device)):
                         hold(*gen, ext, g, rule, topology, code)
-    for name in ["R1,C0,M1,S2..3,B3..3", "R2,C0,M1,S9..16,B8..12", "bosco",
-                 "R2,C0,M0,S6..11,B6..9,NN"]:
-        rule = parse_any(name)
-        for batch, rows, wp in [(1, 40, 3), (4, 72, 5), (8, 130, 33)]:
+    named = [(parse_any(name), [(1, 40, 3), (4, 72, 5), (8, 130, 33)])
+             for name in ["R1,C0,M1,S2..3,B3..3", "R2,C0,M1,S9..16,B8..12",
+                          "bosco", "R2,C0,M0,S6..11,B6..9,NN", "majority"]]
+    every = [(rule, [(4, 72, 5)]) for rule in ltl_every_form()]
+    for rule, shapes in named + every:
+        for batch, rows, wp in shapes:
             for g in (1, 2, 4):
                 ext = words((batch, rows + 2 * rule.radius * g, wp))
                 for topology in Topology:
@@ -485,13 +582,16 @@ def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
               f"{counts[kernel]} {kernel} launches (one per chunk), no "
               f"full-grid kernel, state and population {pop} == the "
               "single-device kernel run")
+        reset_launches(cs)
         t0 = time.perf_counter()
         coord.run(2000)
         coord.engine.block_until_ready()
         wall = time.perf_counter() - t0
+        timed = launches(cs)[kernel]
         rate = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
         out[kernel] = {"launches": counts[kernel], "rate": rate}
         print(f"mesh main path timed ({spec}): 2000 generations in one tick, "
+              f"{timed} {kernel} launches, "
               f"{wall:.4f} s host clock incl. sync, {rate:.4e} cell-updates/s "
               f"(single device: {single_rates[spec]:.4e}, ratio "
               f"{rate / single_rates[spec]:.4f})  [{card}]")
@@ -762,16 +862,23 @@ def main() -> int:
           f"together: {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         built = _build.load(name)
-        print(f"build {name}.cu: nvcc {build_seconds[name]:.2f} s  ({built.path})")
+        units = len(_build.UNITS.get(name, [()]))
+        print(f"build {name}.cu: nvcc {build_seconds[name]:.2f} s, {units} "
+              f"translation unit(s)  ({built.path})")
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+        if name == "life_ltl":
+            frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                r"stores, (\d+) bytes spill loads", built.log)
+            check(len(frames) >= 28 and all(f == ("0", "0", "0") for f in frames),
+                  f"B4 instantiations with a stack frame or spills: {frames}")
         total, loops = sass_counts(built.path, _build.find_nvcc())
         if name == "life_packed":
             check(bool(loops), "no shared-memory loop found in B1's SASS")
         print(f"  sass: {total} instructions; shortest shared-memory loop per "
               "kernel function: " + ("; ".join(
-                  f"{label} {n} instructions, {lop3} LOP3"
+                  f"{label} {n} instructions, {lop3} LOP3{ltl_rows(label, n)}"
                   for label, n, lop3 in loops) or "none found"))
     stamp("the build")
     dev = torch.device("cuda")
@@ -839,23 +946,28 @@ def main() -> int:
           f"max_abs_err {worst['life_generations']}")
 
     cases = 0
-    for name in ["bosco", "majority", "R1,C0,M1,S2..3,B3..3",
-                 "R7,C0,M1,S20..60,B25..50,NN", "R3,C0,M0,S10..20,B12..16",
-                 "R2,C2,S6-9,12-14,B7-8,11"]:
-        rule = parse_any(name)
-        for shape in [(64, 96), (96, 128), (1000, 1056)] + \
-                ([MAIN_SHAPE] if name == "bosco" else []):
+    # the named rules (HROT lists with more boundaries than the unrolled
+    # comparator takes among them), then every radius, box and diamond, M0
+    # and M1, at each depth of the sweep
+    named = [(parse_any(name), [(64, 96), (96, 128), (1000, 1056)] + (
+        [MAIN_SHAPE] if name == "bosco" else [])) for name in [
+            "bosco", "majority", "R1,C0,M1,S2..3,B3..3",
+            "R7,C0,M1,S20..60,B25..50,NN", "R3,C0,M0,S10..20,B12..16",
+            "R2,C2,S6-9,12-14,B7-8,11"]]
+    every = [(rule, [(64, 96), (200, 160)]) for rule in ltl_every_form()]
+    for rule, shapes in named + every:
+        for shape in shapes:
             p = bitpack.pack(seeds.bernoulli(rng, shape, 0.5))
             for topology in Topology:
-                for g in (2, 4):
+                for g in (1, 2, 4):
                     n = 2 * g + 1        # not a multiple of g
                     got = cs.multi_step_ltl_kernel(
                         p, n, rule=rule, topology=topology, gens_per_call=g)
                     want = cs.multi_step_ltl_reference(
                         p, n, rule=rule, topology=topology, gens_per_call=g)
                     err = max_abs_err(got, want)
-                    check(err == 0, f"B4 kernel != plain at {shape} {name} "
-                                    f"{topology} g={g} n={n}")
+                    check(err == 0, f"B4 kernel != plain at {shape} "
+                                    f"{rule.notation} {topology} g={g} n={n}")
                     worst["life_ltl"] = max(worst["life_ltl"], err)
                     cases += 1
     print(f"B4 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
@@ -913,13 +1025,16 @@ def main() -> int:
               f"backend {coord.engine.backend}, {counts[kernel]} {kernel} "
               f"launches, population {pop} == plain version")
         single[spec] = (start_state, want, pop)
+        reset_launches(cs)
         t0 = time.perf_counter()
         coord.run(2000)
         coord.engine.block_until_ready()
         wall = time.perf_counter() - t0
+        timed = launches(cs)[kernel]
         main_rates[kernel] = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
         main_rates[spec] = main_rates[kernel]
         print(f"main path timed ({spec}): 2000 generations in one tick, "
+              f"{timed} {kernel} launches, "
               f"{wall:.4f} s host clock incl. sync, {main_rates[kernel]:.4e} "
               f"cell-updates/s  [{card}]")
         del coord, start_state, want, frames
@@ -1126,19 +1241,34 @@ def main() -> int:
     opw = ltl_ops_per_word(bosco)
     bound_ms, bytes_ms, ops_ms = bound(2 * H * Wp * 4, g * H * Wp * opw)
     print(f"B4 kernel {MAIN_SHAPE[0]}^2 bosco (r=5) g={g} tile="
-          f"{cs.DEFAULT_LTL_TILE[0]}x{cs.DEFAULT_LTL_TILE[1]}: {ms:.5f} ms/launch, "
-          f"{cells * g / (ms / 1e3):.4e} cell-updates/s; bound {bound_ms:.5f} ms "
-          f"(bytes {bytes_ms:.5f}, ops {ops_ms:.5f}: {opw} ops/word/gen)  [{card}]")
+          f"{cs.DEFAULT_LTL_TILE[0]}x{cs.DEFAULT_LTL_TILE[1]} segments of at "
+          f"most {cs.DEFAULT_LTL_SEGMENT} rows: {ms:.5f} ms/launch ({ms / g * 1e3:.2f} "
+          f"us/gen), {cells * g / (ms / 1e3):.4e} cell-updates/s; bound "
+          f"{bound_ms:.5f} ms (bytes {bytes_ms:.5f}, ops {ops_ms:.5f}: {opw} "
+          f"ops/word/gen, the least of the doubling tree's "
+          f"{ltl_tree_ops_per_word(bosco)} and the sliding column's "
+          f"{ltl_sliding_ops_per_word(bosco)}), {bound_ms / ms:.1%} of it  "
+          f"[{card}]")
     print(f"B4 plain version (multi_step_ltl_reference, no yardstick): "
           f"{plain_ms:.4f} ms/launch; plain packed path (multi_step_ltl_packed, "
           f"no yardstick): {packed_ms:.4f} ms/generation  [{card}]")
     sweep = []
-    for gs in (1, 2, 4, 8):
-        for tile in [(64, 64), (128, 32), (256, 16)]:
+    for gs in (1, 2, 4):
+        for tile in [(64, 32), (128, 32), (256, 32), (128, 64), (64, 128),
+                     (256, 64)]:
             t = timed_ms(lambda: cs.multi_step_ltl_kernel(
                 p, gs * 10, rule=bosco, gens_per_call=gs, tile=tile), 1) / (10 * gs)
             sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B4 sweep:", "; ".join(sweep), f" [{card}]")
+    # the diamond, off every timed main path, at the main path's shape
+    nn = parse_any("R7,C0,M1,S20..60,B25..50,NN")
+    nn_ms = timed_ms(lambda: cs.multi_step_ltl_kernel(p, g * 10, rule=nn), 1) / 10
+    nn_opw = ltl_ops_per_word(nn)
+    nn_bound, _, _ = bound(2 * H * Wp * 4, g * H * Wp * nn_opw)
+    print(f"B4 kernel {MAIN_SHAPE[0]}^2 {nn.notation} (diamond r=7) g={g}: "
+          f"{nn_ms:.5f} ms/launch ({nn_ms / g * 1e3:.2f} us/gen); bound "
+          f"{nn_bound:.5f} ms ({nn_opw} ops/word/gen, tree "
+          f"{ltl_tree_ops_per_word(nn)}), {nn_bound / nn_ms:.1%} of it  [{card}]")
     rows.append(("life_ltl", "life_ltl", 308, ms, plain_ms, bound_ms,
                  ops_ms >= bytes_ms))
     del p

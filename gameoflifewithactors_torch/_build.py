@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain ``extern "C"`` interface and loaded with
 :mod:`ctypes`; :func:`build_all` compiles several at once, one ``nvcc``
-each. Libraries go to ``_build/`` beside this file, named by a hash
-of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Importing this module needs no ``nvcc``; a build that
-fails raises with the compiler's output.
+each. A source named in :data:`UNITS` is compiled as several translation
+units at once, the same file under different ``-D`` flags, one ``nvcc -c``
+each, and the objects are linked into its one library. Libraries go to
+``_build/`` beside this file, named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Importing this module needs no ``nvcc``;
+a build that fails raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers, shared memory and spills, kept in the log
 )
+
+# Sources built from several translation units: the -D flags of each unit.
+# life_ltl.cu instantiates its kernels for one radius per unit (the unit of
+# LTL_RADIUS=r), and the unit without it holds the C entry points.
+UNITS = {
+    "life_ltl": [()] + [(f"-DLTL_RADIUS={r}",) for r in range(1, 8)],
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +75,7 @@ def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` for the current source (and
     the current ``csrc/*.cuh`` headers it may include) lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(UNITS.get(name)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for f in [name + ".cu", *headers]:
         with open(os.path.join(CSRC_DIR, f), "rb") as src:
@@ -73,35 +84,58 @@ def library_path(name: str) -> str:
 
 
 def _start(name: str, so: str):
-    """Start ``nvcc`` on ``csrc/<name>.cu``; returns what :func:`_finish`
-    needs."""
+    """Start ``nvcc`` on ``csrc/<name>.cu``, one process per translation
+    unit; returns what :func:`_finish` needs."""
     src = os.path.join(CSRC_DIR, name + ".cu")
+    nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    return src, so, tmp, proc, time.perf_counter()
+    units = UNITS.get(name)
+    if units is None:
+        cmds, objs = [[nvcc, *NVCC_FLAGS, "-o", tmp, src]], None
+    else:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [f"{tmp}.{i}.o" for i in range(len(units))]
+        cmds = [[nvcc, *compile_flags, *defs, "-c", "-o", obj, src]
+                for defs, obj in zip(units, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    return src, so, tmp, procs, objs, time.perf_counter()
 
 
 def _finish(job) -> float:
-    """Wait for a build started by :func:`_start`; returns its seconds."""
-    src, so, tmp, proc, t0 = job
-    out, err = proc.communicate()
+    """Wait for a build started by :func:`_start` (and link the objects of
+    a source of several units); returns its seconds."""
+    src, so, tmp, procs, objs, t0 = job
+    log = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}) building {src} "
+                f"({' '.join(proc.args[-5:])}):\n{out}{err}")
+        log.append(out + err)
+    if objs is not None:
+        link_flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        link = subprocess.run([procs[0].args[0], *link_flags, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        for obj in objs:
+            os.remove(obj)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {src} failed:\n{link.stdout}{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {src}:\n{out}{err}")
     with open(so + ".log", "w") as f:
-        f.write(out + err)
+        f.write("".join(log))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return seconds
 
 
 def build_all(names) -> Dict[str, float]:
     """Compile every named source whose library is missing, one ``nvcc``
-    for each, all started together; returns each build's seconds (0.0 for
-    a library that was already there). :func:`load` then loads them."""
+    for each (one per translation unit for a source in :data:`UNITS`), all
+    started together; returns each build's seconds (0.0 for a library that
+    was already there). :func:`load` then loads them."""
     with _lock:
         jobs = {name: _start(name, library_path(name)) for name in names
                 if not os.path.exists(library_path(name))}

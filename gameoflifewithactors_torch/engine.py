@@ -160,7 +160,7 @@ class Engine:
     mesh: a :class:`.parallel.mesh.Mesh` to shard the grid over, or None.
     gens_per_exchange: with a mesh and backend "cuda", generations per
         chunk (one row exchange and one kernel launch each), 1..32; None is
-        the family's kernel default (8 B/S, 16 Generations, 2 LtL).
+        the family's kernel default (8 B/S, 16 Generations, 4 LtL).
     """
 
     def __init__(

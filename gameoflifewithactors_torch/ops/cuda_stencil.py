@@ -64,8 +64,9 @@ MAX_GENS_PER_CALL = 32    # one halo word per side covers 32 generations
 # Generations and Larger than Life: depth and tile from the sweeps on the
 # card (PERF.md)
 DEFAULT_GENERATIONS_GENS_PER_CALL = 16
-DEFAULT_LTL_GENS_PER_CALL = 2
-DEFAULT_LTL_TILE = (128, 32)
+DEFAULT_LTL_GENS_PER_CALL = 4
+DEFAULT_LTL_TILE = (256, 32)
+DEFAULT_LTL_SEGMENT = 64  # most rows one LtL thread walks down a column
 MAX_LTL_BOUNDS = 32       # interval boundaries per set the LtL kernel takes
 # B2's tile keeps B1's 4096 words but is no wider than the band (a lane of
 # 1024-cell rows is 32 words wide), with about 256 rows at most; its rows
@@ -165,13 +166,9 @@ def _resolve_ltl(rule: LtLRule, gens_per_call: Optional[int],
     """(g, th, tw) of the LtL kernel: halo ``r*g`` rows and
     ``ceil(r*g/32)`` words per side."""
     g = _depth(gens_per_call, DEFAULT_LTL_GENS_PER_CALL)
-    r, hw = rule.radius, _halo_words(rule.radius, g)
-
-    def smem(th, tw):
-        return 2 * (th + 2 * r * g) * (tw + 2 * hw + 2) * 4
-
+    smem = _ltl_smem(rule.radius, g)
     th, tw = _checked_tile(tile or _fit_tile(DEFAULT_LTL_TILE, smem), smem,
-                           f"radius {r} at {g} generations per call")
+                           f"radius {rule.radius} at {g} generations per call")
     return g, th, tw
 
 
@@ -240,8 +237,11 @@ def _resolve_generations_slab(planes: int, gens: int, He: int, Wp: int,
 
 
 def _ltl_smem(radius: int, g: int):
-    hw = _halo_words(radius, g)
-    return lambda th, tw: 2 * (th + 2 * radius * g) * (tw + 2 * hw + 2) * 4
+    """Shared memory of the LtL kernel's tile: two padded slabs (one when a
+    launch advances one generation) and a row for the box's look-ahead."""
+    hw, buffers = _halo_words(radius, g), 2 if g > 1 else 1
+    return lambda th, tw: (buffers * (th + 2 * radius * g) + 1) * \
+        (tw + 2 * hw + 2) * 4
 
 
 def _resolve_ltl_slab(rule: LtLRule, gens: int, He: int, Wp: int,
@@ -707,9 +707,9 @@ _SIGNATURES = {
                                          _U, _U, _U, _I, _I, _P, _P]},
     "life_ltl": {
         "life_ltl_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _I, _P, _I, _P],
+                            _P, _P, _P, _I, _P],
         "life_ltl_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P, _I, _P, _I, _I, _P, _P]},
+                                 _I, _I, _P, _P, _P, _I, _I, _P, _P]},
 }
 
 
@@ -749,12 +749,30 @@ def _edge_args(edge_code) -> Tuple[int, Optional[int]]:
     return int(edge_code), None
 
 
+def _ltl_rule_encoding(rule: LtLRule) -> Tuple[List[int], List[int], List[int]]:
+    """The interval sets as the LtL kernel takes them: the distinct
+    boundaries of both sets, sorted, and for each whether it toggles the
+    birth set and the survival set (0 or 1). A window count (centre
+    included) lies in a set iff it is >= an odd number of the boundaries
+    that toggle it. Under M0 a live cell's count excludes itself, one less
+    than its window count, so its survival boundaries move up by one; a
+    dead cell's two counts are equal."""
+    born = set(_boundaries(rule.born_intervals))
+    keep = {b + (0 if rule.middle else 1)
+            for b in _boundaries(rule.survive_intervals)}
+    bounds = sorted(born | keep)
+    return (bounds, [int(b in born) for b in bounds],
+            [int(b in keep) for b in bounds])
+
+
 def _ltl_rule_args(rule: LtLRule):
-    born = _boundaries(rule.born_intervals)
-    surv = _boundaries(rule.survive_intervals)
-    return (rule.radius, int(rule.neighborhood == "N"), int(rule.middle),
-            len(born), (ctypes.c_int * max(1, len(born)))(*born),
-            len(surv), (ctypes.c_int * max(1, len(surv)))(*surv))
+    bounds, born, keep = _ltl_rule_encoding(rule)
+
+    def ints(values):
+        return (ctypes.c_int * max(1, len(values)))(*values)
+
+    return (rule.radius, int(rule.neighborhood == "N"), len(bounds),
+            ints(bounds), ints(born), ints(keep))
 
 
 def _launch(lib, src: torch.Tensor, dst: torch.Tensor, gens: int, rule: Rule,
@@ -785,7 +803,8 @@ def _launch_ltl(lib, src, dst, gens, rule: LtLRule, topology, th, tw):
     H, Wp = src.shape
     err = lib.life_ltl_launch(
         src.data_ptr(), dst.data_ptr(), H, Wp, gens, th, tw,
-        _halo_words(rule.radius, gens), *_ltl_rule_args(rule),
+        _halo_words(rule.radius, gens), DEFAULT_LTL_SEGMENT,
+        *_ltl_rule_args(rule),
         int(topology is Topology.DEAD), _stream(src))
     _raise_on(lib, "life_ltl", err)
     LTL_LAUNCHES += 1
@@ -820,7 +839,8 @@ def _launch_ltl_slab(lib, src, dst, gens, rule: LtLRule, topology, edge_code,
     B, He, Wp = src.shape
     err = lib.life_ltl_slab_launch(
         src.data_ptr(), dst.data_ptr(), B, He, Wp, gens, th, tw,
-        _halo_words(rule.radius, gens), *_ltl_rule_args(rule),
+        _halo_words(rule.radius, gens), DEFAULT_LTL_SEGMENT,
+        *_ltl_rule_args(rule),
         int(topology is Topology.DEAD), *_edge_args(edge_code), _stream(src))
     _raise_on(lib, "life_ltl", err)
     LTL_SLAB_LAUNCHES += 1

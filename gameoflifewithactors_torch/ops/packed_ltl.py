@@ -186,6 +186,68 @@ def box_counts_packed(p: torch.Tensor, radius: int, topology: Topology,
     return _sliding_sum_bs(col, k, topology if h_topo is None else h_topo)
 
 
+def _add_mod(a: List[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """a + b modulo 2^len(a), both bit-sliced (b may have fewer planes)."""
+    out, carry = [], torch.zeros_like(a[0])
+    for i, x in enumerate(a):
+        y = b[i] if i < len(b) else torch.zeros_like(x)
+        out.append(x ^ y ^ carry)
+        carry = (x & y) | (carry & (x ^ y))
+    return out
+
+
+def _sub_mod(a: List[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """a - b modulo 2^len(a), both bit-sliced (b may have fewer planes)."""
+    out, borrow = [], torch.zeros_like(a[0])
+    for i, x in enumerate(a):
+        y = b[i] if i < len(b) else torch.zeros_like(x)
+        out.append(x ^ y ^ borrow)
+        borrow = (~x & (y | borrow)) | (y & borrow)
+    return out
+
+
+def box_counts_sliding(p: torch.Tensor, radius: int, segment: int,
+                       topology: Topology = Topology.TORUS) -> List[torch.Tensor]:
+    """The (2r+1)^2 box sums of :func:`box_counts_packed`, counted in the
+    order of the LtL kernel (``csrc/life_ltl.cu``): each row's horizontal
+    window once, as a carry-save sum of its 2r+1 shifted planes
+    (bit_length(2r+1) planes), then down column segments of ``segment``
+    rows a running count of exactly bit_length((2r+1)^2) planes, modulo
+    2^planes: a segment starts from the sum of the 2r+1 windows around its
+    first row, and each next row adds the entering row's window and
+    subtracts the leaving one's, kept from 2r+1 rows before in a ring. Rows
+    wrap under TORUS and are zero outside the grid under DEAD; ``topology``
+    closes both axes. Returns the count planes, LSB first."""
+    r, k = radius, 2 * radius + 1
+    planes = (k * k).bit_length()
+    H = p.shape[-2]
+    win = bit_sliced_sum([p] + [hshift_west(p, d, topology) for d in range(1, r + 1)]
+                         + [hshift_east(p, d, topology) for d in range(1, r + 1)])
+
+    def window(y: int) -> List[torch.Tensor]:
+        if topology is Topology.TORUS:
+            y %= H
+        elif not 0 <= y < H:
+            return [torch.zeros_like(p[..., 0, :])]
+        return [w[..., y, :] for w in win]
+
+    counts = [torch.empty_like(p) for _ in range(planes)]
+    for rs in range(0, H, segment):
+        re = min(rs + segment, H)
+        ring = [window(y) for y in range(rs - r, rs + r + 1)]
+        cnt = [torch.zeros_like(p[..., 0, :]) for _ in range(planes)]
+        for w in ring:
+            cnt = _add_mod(cnt, w)
+        for i, y in enumerate(range(rs, re)):
+            for plane, c in zip(counts, cnt):
+                plane[..., y, :] = c
+            if y + 1 < re:   # row y+1+r enters, row y-r leaves: one ring slot
+                entering = window(y + 1 + r)
+                cnt = _sub_mod(_add_mod(cnt, entering), ring[i % k])
+                ring[i % k] = entering
+    return counts
+
+
 def diamond_counts_packed(p: torch.Tensor, radius: int, v_topo: Topology,
                           h_topo: Topology) -> List[torch.Tensor]:
     """Bit-sliced von Neumann (diamond) sums: |dx| + |dy| <= radius.

@@ -110,11 +110,11 @@ def test_band_engine_matches_jax_pallas_engine(on_card, topology):
 
 def test_auto_picks_the_band_runner_on_the_card(on_card):
     """On the card "auto" takes the band runner wherever the slab kernel
-    takes the bands, with the family's default depth (8, 16, 2); a chunk
+    takes the bands, with the family's default depth (8, 16, 4); a chunk
     deeper than a band leaves it to the 2D tiles."""
     tm, _ = _meshes((4, 1))
     for rule, states, g in [("conway", 2, 8), ("brain", 3, 16),
-                            ("bosco", 2, 2)]:
+                            ("bosco", 2, cuda_stencil.DEFAULT_LTL_GENS_PER_CALL)]:
         e = tg.Engine(_cells((128, 64), states, 7), rule, mesh=tm,
                       device="cpu")
         assert (e.backend, e.gens_per_exchange) == ("cuda", g), rule

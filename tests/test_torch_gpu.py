@@ -26,6 +26,8 @@ from gameoflifewithactors_torch.ops.packed_ltl import multi_step_ltl_packed
 from gameoflifewithactors_torch.ops.stencil import Topology
 from gameoflifewithactors_torch.serve import SessionService, SpecFamily
 
+from chip_smoke import ltl_every_form   # every instantiation of the LtL kernel
+
 
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -117,17 +119,22 @@ def test_generations_kernel_matches_plain_version(topology):
 @pytest.mark.parametrize("topology", ["torus", "dead"])
 def test_ltl_kernel_matches_plain_version(topology):
     _need_cuda()
-    for name in ["bosco", "R2,C0,M0,S6..11,B6..9,NN", "R2,C2,S6-9,12-14,B7-8"]:
-        rule = parse_any(name)
-        for shape in [(1000, 1056), (8, 32)]:        # (8, 32): narrower than the halo
+    named = [parse_any(name) for name in
+             ["bosco", "R2,C0,M0,S6..11,B6..9,NN", "R2,C2,S6-9,12-14,B7-8"]]
+    for rule in named + ltl_every_form():
+        for shape in [(1000, 1056) if rule in named else (200, 160),
+                      (8, 32)]:                      # (8, 32): narrower than the halo
             p = bitpack.pack(torch.from_numpy(_grid(*shape, seed=9)).cuda())
-            for g, tile in [(1, None), (2, None), (4, None), (3, (7, 3))]:
+            # (128, 64): few column segments per tile, tens of rows each;
+            # (7, 3): many of a row or two; neither divides the rows evenly
+            for g, tile in [(1, None), (2, None), (2, (128, 64)), (4, None),
+                            (3, (7, 3))]:
                 kwargs = dict(rule=rule, topology=Topology(topology),
                               gens_per_call=g, tile=tile)
                 got = cuda_stencil.multi_step_ltl_kernel(p, 2 * g + 1, **kwargs)
                 want = cuda_stencil.multi_step_ltl_reference(p, 2 * g + 1, **kwargs)
                 torch.cuda.synchronize()
-                assert torch.equal(got, want), (name, shape, g, tile)
+                assert torch.equal(got, want), (rule.notation, shape, g, tile)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,8 @@ from gameoflifewithactors_torch.ops.stencil import Topology
 from gameoflifewithactors_torch.parallel.batched import multi_step_kernel_batched
 from gameoflifewithactors_torch.parallel.mesh import make_mesh
 
+from chip_smoke import ltl_every_form   # every instantiation of the LtL kernel
+
 
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -63,11 +65,16 @@ def test_generations_slab_kernel_matches_plain_version(topology):
 @pytest.mark.gpu
 @pytest.mark.parametrize("topology", ["torus", "dead"])
 def test_ltl_slab_kernel_matches_plain_version(topology):
+    """Every radius 1..7, box and diamond, M0 and M1 (the slab
+    instantiations of the LtL kernel), and two named rules."""
     _need_cuda()
-    for name in ["R1,C0,M1,S2..3,B3..3", "R2,C0,M0,S6..11,B6..9,NN", "bosco"]:
-        rule = parse_any(name)
-        for batch, rows, wp in [(1, 40, 3), (4, 300, 32), (8, 64, 5)]:
-            for g, tile in [(1, None), (2, None), (4, None), (3, (7, 3))]:
+    named = [parse_any(name) for name in ["R2,C0,M0,S6..11,B6..9,NN", "bosco"]]
+    for rule in named + ltl_every_form():
+        shapes = [(1, 40, 3), (4, 300, 32), (8, 64, 5)] if rule in named else [
+            (1, 40, 3), (4, 90, 6)]
+        for batch, rows, wp in shapes:
+            for g, tile in [(1, None), (2, None), (2, (128, 64)), (4, None),
+                            (3, (7, 3))]:
                 ext = _words((batch, rows + 2 * rule.radius * g, wp), 31 + g)
                 for code in (0, 3, _codes(batch)):
                     kwargs = dict(rule=rule, topology=Topology(topology),
@@ -75,7 +82,7 @@ def test_ltl_slab_kernel_matches_plain_version(topology):
                     got = cuda_stencil.slab_step_ltl_kernel(ext, g, **kwargs)
                     want = cuda_stencil.slab_step_ltl_reference(ext, g, **kwargs)
                     torch.cuda.synchronize()
-                    assert torch.equal(got, want), (name, batch, g, tile)
+                    assert torch.equal(got, want), (rule.notation, batch, g, tile)
 
 
 @pytest.mark.gpu
@@ -118,7 +125,8 @@ def test_mesh_engine_on_one_card_matches_the_single_device_kernels(topology):
         for rule, states, counter, g in [
                 ("conway", 2, "SLAB_LAUNCHES", 8),
                 ("brain", 3, "GENERATIONS_SLAB_LAUNCHES", 16),
-                ("bosco", 2, "LTL_SLAB_LAUNCHES", 2)]:
+                ("bosco", 2, "LTL_SLAB_LAUNCHES",
+                 cuda_stencil.DEFAULT_LTL_GENS_PER_CALL)]:
             cells = np.random.default_rng(43).integers(0, states, size=(512, 256),
                                                        dtype=np.uint8)
             sharded = Engine(cells, rule, topology=Topology(topology), mesh=mesh)

@@ -350,6 +350,7 @@ def test_slab_wrappers_refuse_what_the_kernels_cannot_take():
     # tiles: the full-grid tile, no wider than the band, rows evened out
     assert cuda_stencil._resolve_generations_slab(2, 16, 4128, 512, None) \
         == (16, 65, 64)
+    # (the LtL tile's 256 rows evened over 4116: 16 tiles of 258 rows)
     assert cuda_stencil._resolve_ltl_slab(t_parse("bosco"), 2, 4116, 512,
-                                          None) == (2, 129, 32)
+                                          None) == (2, 258, 32)
     assert cuda_stencil._resolve_generations_slab(8, 16, 40, 2, None)[2] == 2
