@@ -12,7 +12,8 @@ Phases, each unguarded (any failure exits non-zero before the last line):
 2. Each kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer words), over rules, topologies, shapes up to
    16384², generations per call, edge codes (one per batch and one per
-   band) and seam-crossing gliders; B4 and its slab form at every radius
+   band) and seam-crossing gliders; B3 on each rule path, at g up to 32
+   and on a tile that divides neither axis; B4 and its slab form at every radius
    1..7, box and diamond, M0 and M1, at g in {1, 2, 4}; the slab forms of
    B3 and B4 on batches of 1, 4 and 8 bands, b = 2..8 planes, and a
    4-band 16384² batch each.
@@ -287,6 +288,23 @@ def ltl_rows(label: str, n: int) -> str:
            f"{'slab' if m.group(3) == '1' else 'full grid'})"
 
 
+def gen_rows(label: str, n: int) -> str:
+    """For a B3 instantiation (``ILi2ELb0ELi1EE``: b = 2, full grid, the
+    equality path over one count), its row loop's instructions per output
+    row: the loop is unrolled over a ring of three rows."""
+    m = re.fullmatch(r"ILi(\d)ELb([01])ELi(\d)EE", label)
+    if not m:
+        return ""
+    path = f"{m.group(3)} count(s)" if m.group(3) != "0" else "table"
+    return f" ({n / 3:.1f} per row; b={m.group(1)}, rule path {path}, " \
+           f"{'slab' if m.group(2) == '1' else 'full grid'})"
+
+
+GEN_RULES = {  # a rule on each of B3's rule paths (equality over K counts, table)
+    1: "brain", 2: "belzhab", 3: "B2/S34/C5", 4: "starwars",
+    0: "B0/S8/C4"}
+
+
 def timed_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn`` over ``reps`` warm calls."""
     import torch
@@ -453,7 +471,8 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
 def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
     """Phase 2 for the slab forms of B3 and B4 against their plain
     versions: batches of 1, 4 and 8 bands with one code per batch (0, 3)
-    and one per band, B3 at b = 2..8 planes and g in {1, 3, 16}, B4 on
+    and one per band, B3 at b = 2..8 planes, both rule paths and g in {1,
+    3, 16, 32}, B4 on
     named rules and at every radius 1..7, box and diamond, M0 and M1
     (:func:`ltl_every_form`, on 4 bands), at g in {1, 2, 4}; then a 4-band
     16384^2 batch each, at the mesh main path's depth. Returns the largest
@@ -480,11 +499,11 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
            cs.slab_step_generations_reference)
     ltl = ("life_ltl_slab", cs.slab_step_ltl_kernel, cs.slab_step_ltl_reference)
     for name in ["brain", "starwars", "B2/S345/C5", "B3/S23/C9", "B3/S23/C17",
-                 "B3/S23/C33", "B3/S23/C65", "B3/S23/C256"]:
+                 "B3/S23/C33", "B3/S23/C65", "B3/S23/C256", "B0/S8/C4"]:
         rule = parse_any(name)
         b = n_planes(rule.states)
         for batch, rows, wp in [(1, 40, 3), (4, 72, 5), (8, 130, 33)]:
-            for g in (1, 3, 16):
+            for g in (1, 3, 16, 32):
                 ext = words((batch, b, rows + 2 * g, wp))
                 for topology in Topology:
                     for code in (0, 3, mesh_codes(batch, rng.device)):
@@ -868,18 +887,39 @@ def main() -> int:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-        if name == "life_ltl":
+        # every instantiation of B4 (28) and B3 (70) without spill or frame
+        least = {"life_ltl": ("B4", 28), "life_generations": ("B3", 70)}
+        if name in least:
             frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                                 r"stores, (\d+) bytes spill loads", built.log)
-            check(len(frames) >= 28 and all(f == ("0", "0", "0") for f in frames),
-                  f"B4 instantiations with a stack frame or spills: {frames}")
+            check(len(frames) >= least[name][1]
+                  and all(f == ("0", "0", "0") for f in frames),
+                  f"{least[name][0]} instantiations with a stack frame or "
+                  f"spills: {frames}")
         total, loops = sass_counts(built.path, _build.find_nvcc())
         if name == "life_packed":
             check(bool(loops), "no shared-memory loop found in B1's SASS")
+        if name == "life_generations":
+            found = {label for label, _, _ in loops}
+            check(all(f"ILi{b}ELb{s}ELi{k}EE" in found for b in (2, 8)
+                      for s in (0, 1) for k in GEN_RULES),
+                  f"B3 row loops missing at b = 2 or 8: {sorted(found)}")
         print(f"  sass: {total} instructions; shortest shared-memory loop per "
               "kernel function: " + ("; ".join(
-                  f"{label} {n} instructions, {lop3} LOP3{ltl_rows(label, n)}"
+                  f"{label} {n} instructions, {lop3} LOP3"
+                  f"{ltl_rows(label, n) if name == 'life_ltl' else gen_rows(label, n)}"
                   for label, n, lop3 in loops) or "none found"))
+    # the kernel's rule path (life_generations_rule_path) against the
+    # wrapper's encoding, for every born set and every survive set
+    from gameoflifewithactors_torch.models.generations import GenRule
+    rule_path = cs._library("life_generations").life_generations_rule_path
+    sets = [[n for n in range(9) if (m >> n) & 1] for m in range(512)]
+    bad = [(bm, sm) for bm in range(512) for sm in range(512)
+           if rule_path(bm, sm) != len(cs._generations_rule_encoding(
+               GenRule(born=sets[bm], survive=sets[sm], states=3)))]
+    check(not bad, f"B3 rule paths differ from the wrapper's encoding: {bad[:4]}")
+    print("B3 rule path == the wrapper's encoding for all 512 x 512 born and "
+          "survive sets")
     stamp("the build")
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
@@ -924,22 +964,28 @@ def main() -> int:
                                            CONWAY, Topology)
 
     cases = 0
-    for name in ["brain", "starwars", "belzhab", "B2/S34/C5", "B3/S23/C256"]:
+    # each rule path (GEN_RULES), C = 2^b (starwars: C = 4, b = 2; C = 256,
+    # b = 8), at g = 1, 8, 16 (the default) and 32, and a tile that divides
+    # neither axis
+    for name in list(GEN_RULES.values()) + ["B3/S23/C256", "B1357/S02468/C17"]:
         rule = parse_any(name)
         for shape in [(2, 32), (72, 96), (1000, 1056)] + \
                 ([MAIN_SHAPE] if name == "brain" else []):
             u = torch.rand(shape, generator=rng, device=dev)
             planes = pack_generations_for((u * rule.states).to(torch.uint8), rule)
             for topology in Topology:
-                for g in (1, 8):
+                for g, tile in [(1, None), (8, None), (16, None), (32, None),
+                                (5, (7, 3))]:
                     n = 2 * g + 3
                     got = cs.multi_step_generations_kernel(
-                        planes, n, rule=rule, topology=topology, gens_per_call=g)
+                        planes, n, rule=rule, topology=topology, gens_per_call=g,
+                        tile=tile)
                     want = cs.multi_step_generations_reference(
-                        planes, n, rule=rule, topology=topology, gens_per_call=g)
+                        planes, n, rule=rule, topology=topology, gens_per_call=g,
+                        tile=tile)
                     err = max_abs_err(got, want)
                     check(err == 0, f"B3 kernel != plain at {shape} {name} "
-                                    f"{topology} g={g} n={n}")
+                                    f"{topology} g={g} tile={tile} n={n}")
                     worst["life_generations"] = max(worst["life_generations"], err)
                     cases += 1
     print(f"B3 kernel vs plain: {cases} cases bit-identical (tolerance 0), "
@@ -1220,9 +1266,13 @@ def main() -> int:
           f"{plain_ms:.4f} ms/launch; plain packed path "
           f"(multi_step_packed_generations, no yardstick): {packed_ms:.4f} "
           f"ms/generation  [{card}]")
+    th, tw = cs._resolve_generations(b, g, None)[1:]
+    print(f"B3 default tile {th}x{tw} at b={b} g={g}: {bound_ms / ms:.1%} of the "
+          f"bound  [{card}]")
     sweep = []
-    for gs, tile in [(8, (64, 64)), (8, (32, 64)), (8, (64, 32)), (16, (64, 64)),
-                     (16, (32, 64)), (32, (64, 64)), (4, (64, 64))]:
+    for gs, tile in [(16, (192, 28)), (16, (160, 28)), (16, (128, 28)),
+                     (16, (64, 28)), (16, (64, 58)), (16, (128, 58)),
+                     (8, (192, 28)), (32, (160, 28)), (4, (192, 28))]:
         t = timed_ms(lambda: cs.multi_step_generations_kernel(
             planes, gs * 20, rule=brain, gens_per_call=gs, tile=tile), 1) / (20 * gs)
         sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
@@ -1230,6 +1280,23 @@ def main() -> int:
     rows.append(("life_generations", "life_generations", 218, ms, plain_ms,
                  bound_ms, ops_ms >= bytes_ms))
     del planes, u
+    # each rule path at the main path's shape and depth: the lookup sized to
+    # the rule's counts, and the table
+    paths = []
+    for k, name in GEN_RULES.items():
+        rule = parse_any(name)
+        u = torch.rand(MAIN_SHAPE, generator=rng, device=dev)
+        planes = pack_generations_for((u * rule.states).to(torch.uint8), rule)
+        del u
+        t = timed_ms(lambda: cs.multi_step_generations_kernel(
+            planes, g * 20, rule=rule), 1) / 20
+        nb = planes.shape[0]
+        b_ms = bound(2 * nb * H * Wp * 4, g * H * Wp * gen_ops_per_word(rule))[0]
+        paths.append(f"{name} (b={nb}, {k or 'table'}{' count(s)' if k else ''}): "
+                     f"{t:.5f} ms/launch, {b_ms / t:.1%} of its "
+                     f"{gen_ops_per_word(rule)}-op bound")
+        del planes
+    print(f"B3 rule paths {MAIN_SHAPE[0]}^2 g={g}:", "; ".join(paths), f" [{card}]")
 
     # B4: Bosco
     bosco = parse_any("bosco")

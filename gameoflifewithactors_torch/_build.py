@@ -36,8 +36,10 @@ NVCC_FLAGS = (
 
 # Sources built from several translation units: the -D flags of each unit.
 # life_ltl.cu instantiates its kernels for one radius per unit (the unit of
-# LTL_RADIUS=r), and the unit without it holds the C entry points.
+# LTL_RADIUS=r), life_generations.cu for one plane count per unit (the unit
+# of GEN_PLANES=b), and the unit without it holds the C entry points.
 UNITS = {
+    "life_generations": [()] + [(f"-DGEN_PLANES={b}",) for b in range(2, 9)],
     "life_ltl": [()] + [(f"-DLTL_RADIUS={r}",) for r in range(1, 8)],
 }
 

@@ -10,7 +10,8 @@
 //   thread into all-ones/all-zero table words and looked up bit-sliced: a
 //   mux tree over the count bit-planes and the alive plane (17 LOP3s per
 //   word, no branches). It computes what ops/packed.py::apply_rule_planes
-//   does, and one build serves every B/S rule, B0 rules included.
+//   does, and one build serves every B/S rule, B0 rules included. B3
+//   (life_generations.cu) takes the same lookup for rules with many counts.
 
 #pragma once
 
@@ -57,10 +58,27 @@ __device__ __forceinline__ RuleMasks rule_masks(unsigned born, unsigned survive)
   return m;
 }
 
+// The rule table looked up bit-sliced at the count r0..r3 (r3 set only
+// for count 8, where r0 = r1 = r2 = 0): a mux tree over the count bits
+// and the alive plane, all-ones where the cell is born (alive clear) or
+// survives (alive set). 17 LOP3s, the same for every rule.
+__device__ __forceinline__ uint32_t lookup(uint32_t alive, uint32_t r0,
+                                           uint32_t r1, uint32_t r2,
+                                           uint32_t r3, const RuleMasks& m) {
+  uint32_t l1[8], l2[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) l1[i] = mux(r0, m.t[2 * i + 1], m.t[2 * i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l2[i] = mux(r1, l1[2 * i + 1], l1[2 * i]);
+  const uint32_t dead_next = mux(r2, l2[1], l2[0]);
+  const uint32_t live_next = mux(r2, l2[3], l2[2]);
+  const uint32_t low = mux(alive, live_next, dead_next);
+  return mux(r3, mux(alive, m.keep8, m.born8), low);
+}
+
 // Next state of the 32 cells of `alive` from the north/south T sums and
 // the centre row's S sum: the count T_n + S + T_s in four bit-planes, then
-// the rule table looked up bit-sliced (a mux tree over the count bits and
-// the alive plane), the same for every rule.
+// the rule table looked up bit-sliced (lookup), the same for every rule.
 __device__ __forceinline__ uint32_t next_word(uint32_t alive, uint32_t tn0,
                                               uint32_t tn1, uint32_t s0,
                                               uint32_t s1, uint32_t ts0,
@@ -75,15 +93,7 @@ __device__ __forceinline__ uint32_t next_word(uint32_t alive, uint32_t tn0,
   const uint32_t k2b = sum & k1;
   const uint32_t r2 = k2 ^ k2b;
   const uint32_t r3 = k2 & k2b;   // count 8 (then r0 = r1 = r2 = 0)
-  uint32_t l1[8], l2[4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) l1[i] = mux(r0, m.t[2 * i + 1], m.t[2 * i]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) l2[i] = mux(r1, l1[2 * i + 1], l1[2 * i]);
-  const uint32_t dead_next = mux(r2, l2[1], l2[0]);
-  const uint32_t live_next = mux(r2, l2[3], l2[2]);
-  const uint32_t low = mux(alive, live_next, dead_next);
-  return mux(r3, mux(alive, m.keep8, m.born8), low);
+  return lookup(alive, r0, r1, r2, r3, m);
 }
 
 }  // namespace life

@@ -96,7 +96,7 @@ def _kernel_takes(rule, h: int, wp: int) -> bool:
 
 def default_gens_per_exchange(rule) -> int:
     """The band runners' default chunk: the rule family's kernel default
-    from the sweeps on the card (8 for B/S, 16 for Generations, 2 for
+    from the sweeps on the card (8 for B/S, 16 for Generations, 4 for
     Larger than Life)."""
     if isinstance(rule, GenRule):
         return cuda_stencil.DEFAULT_GENERATIONS_GENS_PER_CALL

@@ -64,6 +64,14 @@ MAX_GENS_PER_CALL = 32    # one halo word per side covers 32 generations
 # Generations and Larger than Life: depth and tile from the sweeps on the
 # card (PERF.md)
 DEFAULT_GENERATIONS_GENS_PER_CALL = 16
+# B3's tiles, the first that lets two blocks share an SM (else the first
+# that fits) being the default: a warp writes 30 words of a row, so 28
+# words (30 computed with the halo) fill one warp, and tall tiles spend
+# the fewest rows on the halo
+_GENERATIONS_TILES = ((192, 28), (160, 28), (128, 28), (96, 28), (64, 28),
+                      (32, 28), (16, 28), (16, 13), (8, 13), (8, 6), (4, 6),
+                      (2, 6), (1, 6), (1, 1))
+MAX_GENERATIONS_COUNTS = 4   # counts B3's equality path tests
 DEFAULT_LTL_GENS_PER_CALL = 4
 DEFAULT_LTL_TILE = (256, 32)
 DEFAULT_LTL_SEGMENT = 64  # most rows one LtL thread walks down a column
@@ -143,16 +151,29 @@ def _resolve(gens_per_call: Optional[int], tile: Optional[Tuple[int, int]]
     return g, th, tw
 
 
+def _generations_smem(planes: int, g: int):
+    """Shared memory of the B3 kernel's tile: two buffers of b planes of
+    padded slab rows."""
+    return lambda th, tw: 2 * planes * (th + 2 * g) * (tw + 4) * 4
+
+
+def _generations_tile(smem) -> Tuple[int, int]:
+    """B3's default tile: the first of :data:`_GENERATIONS_TILES` whose
+    slabs leave room for a second block on the SM, else the first that
+    fits."""
+    for limit in (_SMEM_LIMIT // 2, _SMEM_LIMIT):
+        for th, tw in _GENERATIONS_TILES:
+            if smem(th, tw) <= limit:
+                return th, tw
+    return _GENERATIONS_TILES[-1]
+
+
 def _resolve_generations(planes: int, gens_per_call: Optional[int],
                          tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
-    """(g, th, tw) of the Generations kernel for ``planes`` bit-planes: the
-    default tile shrinks until the 2*b padded slabs fit."""
+    """(g, th, tw) of the Generations kernel for ``planes`` bit-planes."""
     g = _depth(gens_per_call, DEFAULT_GENERATIONS_GENS_PER_CALL)
-
-    def smem(th, tw):
-        return 2 * planes * (th + 2 * g) * (tw + 4) * 4
-
-    th, tw = _checked_tile(tile or _fit_tile(DEFAULT_TILE, smem), smem,
+    smem = _generations_smem(planes, g)
+    th, tw = _checked_tile(tile or _generations_tile(smem), smem,
                            f"{planes} planes at {g} generations per call")
     return g, th, tw
 
@@ -221,15 +242,12 @@ def _resolve_generations_slab(planes: int, gens: int, He: int, Wp: int,
                               tile: Optional[Tuple[int, int]]
                               ) -> Tuple[int, int, int]:
     """(g, th, tw) of the B3 slab kernel for ``(planes, He, Wp)`` bands:
-    the full-grid kernel's tile (shrunk until the 2*b slabs fit), no wider
-    than the band, its rows evened out over the band."""
+    the full-grid kernel's default tile, no wider than the band, its rows
+    evened out over the band."""
     g = _depth(gens, DEFAULT_GENERATIONS_GENS_PER_CALL)
-
-    def smem(th, tw):
-        return 2 * planes * (th + 2 * g) * (tw + 4) * 4
-
+    smem = _generations_smem(planes, g)
     if tile is None:
-        th, tw = _fit_tile(DEFAULT_TILE, smem)
+        th, tw = _generations_tile(smem)
         tile = _even_rows(He, (th, max(1, min(tw, Wp))), smem)
     th, tw = _checked_tile(tile, smem,
                            f"{planes} planes at {g} generations per call")
@@ -448,7 +466,8 @@ def _generations_launch_reference(planes: torch.Tensor, gens: int,
     for k in range(gens):
         slab = _rezero(slab, masks, k)
         slab = torch.stack(step_planes_slab(
-            tuple(slab[j] for j in range(b)), rule, Topology.DEAD))
+            tuple(slab[j] for j in range(b)), rule, Topology.DEAD,
+            encoding=_generations_rule_encoding(rule)))
     return _untile(slab, 1, tw, H, Wp)
 
 
@@ -554,7 +573,8 @@ def _generations_slab_launch_reference(ext: torch.Tensor, gens: int,
     for k in range(gens):
         slab = _rezero(slab, (live_rows, col_in), k)
         slab = torch.stack(step_planes_slab(
-            tuple(slab[:, j] for j in range(b)), rule, Topology.DEAD), dim=1)
+            tuple(slab[:, j] for j in range(b)), rule, Topology.DEAD,
+            encoding=_generations_rule_encoding(rule)), dim=1)
     return _untile(slab, 1, tw, He, Wp)
 
 
@@ -704,7 +724,8 @@ _SIGNATURES = {
         "life_generations_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
                                     _U, _I, _P],
         "life_generations_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                         _U, _U, _U, _I, _I, _P, _P]},
+                                         _U, _U, _U, _I, _I, _P, _P],
+        "life_generations_rule_path": [_U, _U]},
     "life_ltl": {
         "life_ltl_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _I, _P],
@@ -763,6 +784,24 @@ def _ltl_rule_encoding(rule: LtLRule) -> Tuple[List[int], List[int], List[int]]:
     bounds = sorted(born | keep)
     return (bounds, [int(b in born) for b in bounds],
             [int(b in keep) for b in bounds])
+
+
+def _generations_rule_encoding(rule: GenRule) -> Tuple[Tuple[int, int, int], ...]:
+    """The rule as the B3 kernel looks it up. A rule whose born and
+    survive sets together name 1..``MAX_GENERATIONS_COUNTS`` counts, all
+    in 1..7, takes the equality path: each count ascending, with whether
+    it is a birth and a survival count (1 or 0); the kernel tests a
+    count's equality plane on the three low count bit-planes alone, which
+    count 8 (low bits 000) never matches. Any other rule is ``()``: the
+    9-entry table. ``csrc/life_generations.cu``'s ``rule_path`` makes the
+    same choice; ``packed_generations.encoded_rule_planes`` is the plain
+    twin of the lookup."""
+    counts = sorted(rule.born | rule.survive)
+    if (not counts or len(counts) > MAX_GENERATIONS_COUNTS or counts[0] == 0
+            or counts[-1] == 8):
+        return ()
+    return tuple((n, int(n in rule.born), int(n in rule.survive))
+                 for n in counts)
 
 
 def _ltl_rule_args(rule: LtLRule):

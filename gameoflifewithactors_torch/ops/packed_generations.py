@@ -120,10 +120,41 @@ def transition_planes(plist, alive, born_p, keep_p, states: int
     return tuple(out)
 
 
-def _transition(plist, alive, bits, rule: GenRule):
-    """Next-generation planes from (state planes, alive plane, count bits)."""
-    born_p = _mask_plane(bits, rule.born, alive)
-    keep_p = _mask_plane(bits, rule.survive, alive)
+def encoded_rule_planes(bits: List[torch.Tensor], alive: torch.Tensor,
+                        rule: GenRule, encoding) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(birth, keep) predicate planes as kernel B3 looks them up, from the
+    rule's encoding (``cuda_stencil._generations_rule_encoding``): on the
+    equality path each encoded count's plane, tested on the three low
+    count bit-planes alone (its counts lie in 1..7, and count 8's low bits
+    are 000), joins the birth and keep planes it belongs to; on the table
+    path (``()``) one plane, the birth mask where the cell is not alive and
+    the keep mask where it is, serves as both (:func:`transition_planes`
+    reads the birth plane only where the state is 0 and the keep plane only
+    where it is 1)."""
+    if not encoding:
+        born = _mask_plane(bits, rule.born, alive)
+        keep = _mask_plane(bits, rule.survive, alive)
+        either = (alive & keep) | (~alive & born)
+        return either, either
+    born = keep = torch.zeros_like(alive)
+    for n, is_born, is_kept in encoding:
+        eq = _count_eq(bits[:3], n)
+        if is_born:
+            born = born | eq
+        if is_kept:
+            keep = keep | eq
+    return born, keep
+
+
+def _transition(plist, alive, bits, rule: GenRule, encoding=None):
+    """Next-generation planes from (state planes, alive plane, count bits):
+    the masks of :func:`_mask_plane`, or with an ``encoding`` those of
+    :func:`encoded_rule_planes`."""
+    if encoding is None:
+        born_p = _mask_plane(bits, rule.born, alive)
+        keep_p = _mask_plane(bits, rule.survive, alive)
+    else:
+        born_p, keep_p = encoded_rule_planes(bits, alive, rule, encoding)
     return transition_planes(plist, alive, born_p, keep_p, rule.states)
 
 
@@ -143,13 +174,15 @@ def step_planes_ext(ext_list, rule: GenRule):
     return _transition(interior, center, bits, rule)
 
 
-def step_planes_slab(plist, rule: GenRule, topology: Topology):
+def step_planes_slab(plist, rule: GenRule, topology: Topology, encoding=None):
     """One generation for the interior rows of b (..., L, Wp) planes -> b
     (..., L-2, Wp) planes — the Generations twin of
     :func:`.packed.step_packed_slab` (rows shrink consuming vertical halos;
     ``topology`` is the horizontal closure across the slab's own width).
     Rows are the second-to-last axis, so a batch of slabs (the CUDA
-    kernel's tiles, in its plain version) steps at once."""
+    kernel's tiles, in its plain version) steps at once. ``encoding``, the
+    CUDA kernel's form of the rule, makes the rule lookup the kernel's
+    (:func:`encoded_rule_planes`); the result is the same."""
     h = plist[0].shape[-2] - 2
     alive = _alive_of(plist)
     w, c, e = horizontal_planes(alive, topology)
@@ -158,7 +191,7 @@ def step_planes_slab(plist, rule: GenRule, topology: Topology):
         lambda p: (p[..., 0:h, :], p[..., 2:h + 2, :]),
         lambda p: p[..., 1:h + 1, :])
     interior = tuple(p[..., 1:h + 1, :] for p in plist)
-    return _transition(interior, alive[..., 1:h + 1, :], bits, rule)
+    return _transition(interior, alive[..., 1:h + 1, :], bits, rule, encoding)
 
 
 def step_planes(planes: torch.Tensor, rule: GenRule, topology: Topology) -> torch.Tensor:

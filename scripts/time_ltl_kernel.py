@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Times kernel B4 (Larger than Life) of a ``gameoflifewithactors_torch``
-tree on one CUDA card, to compare two versions within one run.
+"""Times kernel B4 (Larger than Life) or B3 (Generations) of a
+``gameoflifewithactors_torch`` tree on one CUDA card, to compare two
+versions within one run.
 
-    python3 scripts/time_ltl_kernel.py [TREE]
+    python3 scripts/time_ltl_kernel.py [TREE] [--kernel b4|b3]
+        [--rules NAME,...] [--variant plain-lop3|constant-rule|table]
 
 TREE (default: this repository) is a directory holding the package, such
 as an unpacked ``git archive`` of another commit; its kernels are built
 there at first use. The timer, the shape (16384^2, 50% soup, TORUS) and
 the band batch are ``chip_smoke.py``'s. The tree's kernel is first held
-against its plain version on Bosco at a small shape. Prints one JSON
-line: the card's name and power limit, the tree, and per case the
-milliseconds per launch and microseconds per generation:
+against its plain version at a small shape. Prints one JSON line: the
+card's name and power limit, the tree, and per case the milliseconds per
+launch and microseconds per generation.
+
+``--kernel b4`` (the default):
 
 - Bosco on the full grid at the tree's default tile for g = 1, 2 and 4,
   with the words each launch computes (halo rows and words included), and
@@ -21,76 +25,157 @@ milliseconds per launch and microseconds per generation:
   the tree's default depth;
 - the radius-7 diamond R7,C0,M1,S20..60,B25..50,NN on the full grid.
 
+``--kernel b3``: Brian's Brain (or the first of ``--rules``) on the full
+grid at the tree's default tile for g = 1, 4 and 16 with the same fit,
+and on the mesh main path's four bands at the tree's default depth; then
+every rule of ``--rules`` (default ``brain``) on the full grid at the
+tree's default depth.
+
+``--variant`` times a copy of TREE's package, written to
+``_checkout/<variant>`` beside this repository with one edit to B3's
+source: ``plain-lop3`` leaves every three-input step to the compiler
+(lop3<> as plain C); ``constant-rule`` fixes the one rule of ``--rules``
+in the kernel at compile time (what a build per rule would give) and
+writes the steps that read the rule's masks in plain C, so that the
+compiler folds them; ``table`` sends every rule to the table path.
+
 Run it for both trees in turns (A, B, B, A) to see the spread.
 """
 
+import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PACKAGE = "gameoflifewithactors_torch"
 
 
-def computed_words(H: int, Wp: int, th: int, tw: int, r: int, g: int) -> int:
+def computed_words(H: int, Wp: int, th: int, tw: int, r: int, g: int,
+                   hw: int) -> int:
     """Words one launch computes over all its generations: every
-    generation but the last computes the tile's shrinking slab with its
-    halo words, the last the tile alone (H and Wp multiples of the tile)."""
-    hw = -(-r * g // 32)
+    generation but the last computes the tile's slab, shrinking ``r`` rows
+    per side and generation, with ``hw`` halo words per side; the last the
+    tile alone (the ragged last tiles counted whole)."""
     slab = th + 2 * r * g
     per_tile = th * tw + sum((slab - 2 * r * (k + 1)) * (tw + 2 * hw)
                              for k in range(g - 1))
-    return per_tile * (H // th) * (Wp // tw)
+    return per_tile * -(-H // th) * -(-Wp // tw)
 
 
-def main() -> int:
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.join(HERE, ".."))
-    sys.path[:0] = [tree, os.path.join(HERE, "..")]
+def fit(depths) -> dict:
+    """The least-squares line of ms per launch over computed words."""
+    mx = sum(d["words"] for d in depths) / len(depths)
+    my = sum(d["ms_per_launch"] for d in depths) / len(depths)
+    slope = sum((d["words"] - mx) * (d["ms_per_launch"] - my) for d in depths) / \
+        sum((d["words"] - mx) ** 2 for d in depths)
+    return {"intercept_ms": my - slope * mx, "ns_per_word": slope * 1e6,
+            "residuals_ms": [d["ms_per_launch"] - my - slope * (d["words"] - mx)
+                             for d in depths]}
+
+
+def edit(path: str, changes) -> None:
+    """Replace each (old, new) of ``changes`` in the file, once each."""
+    with open(path) as f:
+        text = f.read()
+    for old, new in changes:
+        if text.count(old) != 1:
+            raise SystemExit(f"{path}: {old!r} not found once")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def variant_tree(tree: str, variant: str, rule) -> str:
+    """A copy of ``tree``'s package and ``chip_smoke.py`` under
+    ``_checkout/<variant>`` with the edit ``variant`` names (see the
+    module docstring); returns its directory."""
+    out = os.path.join(HERE, "..", "_checkout", variant)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, PACKAGE), os.path.join(out, PACKAGE),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(tree, "chip_smoke.py"), out)
+    csrc = os.path.join(out, PACKAGE, "csrc")
+    if variant == "table":
+        edit(os.path.join(csrc, "life_generations.cu"),
+             [("return (counts & 0x101u) || n == 0 || n > kMaxEntries ? 0 : n;",
+               "return 0;")])
+        return out
+    if variant == "plain-lop3":
+        edit(os.path.join(csrc, "life_bits.cuh"),
+             [("#ifdef __CUDA_ARCH__\n  uint32_t d;\n  asm(",
+               "#if 0\n  uint32_t d;\n  asm(")])
+        return out
+    edit(os.path.join(csrc, "life_generations.cu"), [
+        ("make_rule<K>(a.born, a.survive)",
+         f"make_rule<K>({rule.birth_mask}u, {rule.survive_mask}u)"),
+        ("((a.states >> j) & 1u)", f"(({rule.states}u >> j) & 1u)"),
+        ("lop3<kAndXnor>(\n          lop3<kNotBothXnor>(r0 ^ rule.n0[i], r1, "
+         "rule.n1[i]), r2, rule.n2[i])",
+         "~(r0 ^ rule.n0[i]) & ~(r1 ^ rule.n1[i]) & ~(r2 ^ rule.n2[i])"),
+        ("born = lop3<kOrAnd>(born, eq, rule.born[i]);",
+         "born = born | (eq & rule.born[i]);"),
+        ("keep = lop3<kOrAnd>(keep, eq, rule.keep[i]);",
+         "keep = keep | (eq & rule.keep[i]);"),
+        ("lop3<kAndNotOr>(c.nonzero, born, kept)", "(~c.nonzero & born) | kept"),
+        ("eq = lop3<kAndXnor>(eq, inc[j], cbits[j]);",
+         "eq = eq & ~(inc[j] ^ cbits[j]);")])
+    return out
+
+
+def soup_words(gen, shape):
+    """A 50% soup of packed words on the card."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("time_ltl_kernel: no CUDA device available", file=sys.stderr)
-        return 1
+    from gameoflifewithactors_torch.ops import bitpack
+
+    return bitpack.pack((torch.rand(shape, generator=gen, device="cuda")
+                         < 0.5).to(torch.uint8))
+
+
+def soup_planes(gen, rule, shape):
+    """A soup of uniformly drawn states of ``rule``, as a plane stack."""
+    import torch
+
+    from gameoflifewithactors_torch.ops.packed_generations import (
+        pack_generations_for)
+
+    u = torch.rand(shape, generator=gen, device="cuda")
+    return pack_generations_for((u * rule.states).to(torch.uint8), rule)
+
+
+# The tree's modules: main() puts the tree first on the path before any of
+# them is imported, so these imports resolve to the tree's package.
+def time_b4(out, gen) -> bool:
+    import torch
+
     from chip_smoke import MAIN_SHAPE, MESH_BANDS, band_batch, timed_ms
     from gameoflifewithactors_torch.models.generations import parse_any
-    from gameoflifewithactors_torch.ops import bitpack
     from gameoflifewithactors_torch.ops import cuda_stencil as cs
     from gameoflifewithactors_torch.ops.stencil import Topology
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     bosco = parse_any("bosco")
-    small = bitpack.pack((torch.rand((1000, 1056), generator=gen, device="cuda")
-                          < 0.5).to(torch.uint8))
+    small = soup_words(gen, (1000, 1056))
     if not torch.equal(cs.multi_step_ltl_kernel(small, 9, rule=bosco),
                        cs.multi_step_ltl_reference(small, 9, rule=bosco)):
         print("time_ltl_kernel: B4 differs from its plain version", file=sys.stderr)
-        return 1
-    p = bitpack.pack((torch.rand(MAIN_SHAPE, generator=gen, device="cuda")
-                      < 0.5).to(torch.uint8))
+        return False
+    p = soup_words(gen, MAIN_SHAPE)
     H, Wp = p.shape
-    out = {"card": card, "tree": tree, "g": cs.DEFAULT_LTL_GENS_PER_CALL}
+    out["g"] = cs.DEFAULT_LTL_GENS_PER_CALL
     tile = tuple(cs.DEFAULT_LTL_TILE)
     depths = []
     for g in (1, 2, 4):
         ms = timed_ms(lambda: cs.multi_step_ltl_kernel(
             p, g * 20, rule=bosco, gens_per_call=g, tile=tile), 1) / 20
-        words = computed_words(H, Wp, *tile, bosco.radius, g)
+        words = computed_words(H, Wp, *tile, bosco.radius, g,
+                               -(-bosco.radius * g // 32))
         depths.append({"g": g, "tile": tile, "ms_per_launch": ms,
                        "us_per_gen": ms / g * 1e3, "words": words})
-    mx = sum(d["words"] for d in depths) / len(depths)
-    my = sum(d["ms_per_launch"] for d in depths) / len(depths)
-    slope = sum((d["words"] - mx) * (d["ms_per_launch"] - my) for d in depths) / \
-        sum((d["words"] - mx) ** 2 for d in depths)
     out["bosco_depths"] = depths
-    out["bosco_fit"] = {"intercept_ms": my - slope * mx,
-                        "ns_per_word": slope * 1e6,
-                        "residuals_ms": [d["ms_per_launch"] - my - slope *
-                                         (d["words"] - mx) for d in depths]}
+    out["bosco_fit"] = fit(depths)
     g = cs.DEFAULT_LTL_GENS_PER_CALL
     nn = parse_any("R7,C0,M1,S20..60,B25..50,NN")
     ms = timed_ms(lambda: cs.multi_step_ltl_kernel(p, g * 20, rule=nn), 1) / 20
@@ -99,6 +184,93 @@ def main() -> int:
     ms = timed_ms(lambda: cs.slab_step_ltl_kernel(ext, g, rule=bosco), 50)
     out["bosco_slab"] = {"shape": list(ext.shape), "ms_per_launch": ms,
                          "us_per_gen": ms / g * 1e3}
+    return True
+
+
+def time_b3(out, rules, gen) -> bool:
+    import torch
+
+    from chip_smoke import MAIN_SHAPE, MESH_BANDS, band_batch, timed_ms
+    from gameoflifewithactors_torch.models.generations import parse_any
+    from gameoflifewithactors_torch.ops import cuda_stencil as cs
+    from gameoflifewithactors_torch.ops.stencil import Topology
+
+    first = parse_any(rules[0])
+    small = soup_planes(gen, first, (1000, 1056))
+    for g in (5, 16):
+        if not torch.equal(
+                cs.multi_step_generations_kernel(small, 37, rule=first,
+                                                 gens_per_call=g),
+                cs.multi_step_generations_reference(small, 37, rule=first,
+                                                    gens_per_call=g)):
+            print("time_ltl_kernel: B3 differs from its plain version",
+                  file=sys.stderr)
+            return False
+    planes = soup_planes(gen, first, MAIN_SHAPE)
+    b, H, Wp = planes.shape
+    gd = cs.DEFAULT_GENERATIONS_GENS_PER_CALL
+    out["g"] = gd
+    depths = []
+    for g in (1, 4, 16):
+        _, th, tw = cs._resolve_generations(b, g, None)
+        ms = timed_ms(lambda: cs.multi_step_generations_kernel(
+            planes, g * 20, rule=first, gens_per_call=g), 1) / 20
+        depths.append({"g": g, "tile": (th, tw), "ms_per_launch": ms,
+                       "us_per_gen": ms / g * 1e3,
+                       "words": computed_words(H, Wp, th, tw, 1, g, 1)})
+    out["depths"] = depths
+    out["fit"] = fit(depths)
+    ext = band_batch(planes, MESH_BANDS, gd, Topology.TORUS)
+    ms = timed_ms(lambda: cs.slab_step_generations_kernel(ext, gd, rule=first), 50)
+    out["slab"] = {"rule": rules[0], "shape": list(ext.shape),
+                   "ms_per_launch": ms, "us_per_gen": ms / gd * 1e3}
+    del ext
+    out["rules"] = {}
+    for name in rules:
+        rule = parse_any(name)
+        p = planes if name == rules[0] else soup_planes(gen, rule, MAIN_SHAPE)
+        ms = timed_ms(lambda: cs.multi_step_generations_kernel(
+            p, gd * 20, rule=rule), 1) / 20
+        out["rules"][name] = {"ms_per_launch": ms, "us_per_gen": ms / gd * 1e3}
+    return True
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tree", nargs="?", default=os.path.join(HERE, ".."))
+    ap.add_argument("--kernel", choices=["b4", "b3"], default="b4")
+    ap.add_argument("--rules", default="brain")
+    ap.add_argument("--variant", choices=["plain-lop3", "constant-rule", "table"])
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    rules = args.rules.split(",")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_ltl_kernel: no CUDA device available", file=sys.stderr)
+        return 1
+    if args.variant:
+        if args.kernel != "b3" or (args.variant == "constant-rule"
+                                   and len(rules) != 1):
+            ap.error("--variant takes --kernel b3 (and constant-rule one rule)")
+        sys.path.insert(0, tree)
+        from gameoflifewithactors_torch.models.generations import parse_any
+        rule = parse_any(rules[0])
+        del sys.path[0]
+        for mod in [m for m in sys.modules if m.startswith(PACKAGE)]:
+            del sys.modules[mod]
+        tree = os.path.abspath(variant_tree(tree, args.variant, rule))
+    sys.path[:0] = [tree, os.path.join(HERE, "..")]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {"card": card, "tree": tree, "kernel": args.kernel,
+           "variant": args.variant}
+    ok = time_b3(out, rules, gen) if args.kernel == "b3" else time_b4(out, gen)
+    if not ok:
+        return 1
     print(json.dumps(out))
     return 0
 

@@ -187,7 +187,8 @@ def test_supported_predicates_and_default_tiles():
     assert not cs.supported_generations((16384, 512), 1)
     assert not cs.supported_generations((16384, 512), 9)
     assert not cs.supported_generations((0, 4), 2)
-    assert not cs.supported_generations((64 * 70000, 1), 2)
+    th = cs._resolve_generations(2, None, None)[1]   # more row tiles than
+    assert not cs.supported_generations((th * 70000, 1), 2)   # the grid holds
     for b in range(2, 9):          # the default tile shrinks until it fits
         for g in (1, 8, 32):
             got, th, tw = cs._resolve_generations(b, g, None)

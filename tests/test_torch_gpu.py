@@ -26,7 +26,7 @@ from gameoflifewithactors_torch.ops.packed_ltl import multi_step_ltl_packed
 from gameoflifewithactors_torch.ops.stencil import Topology
 from gameoflifewithactors_torch.serve import SessionService, SpecFamily
 
-from chip_smoke import ltl_every_form   # every instantiation of the LtL kernel
+from chip_smoke import GEN_RULES, ltl_every_form   # B3's rule paths, B4's forms
 
 
 def _need_cuda():
@@ -99,13 +99,15 @@ def test_plain_backends_on_the_card_match_the_cpu():
 @pytest.mark.gpu
 @pytest.mark.parametrize("topology", ["torus", "dead"])
 def test_generations_kernel_matches_plain_version(topology):
+    """A rule on each rule path of B3 and C = 256, at g up to 32."""
     _need_cuda()
     rng = np.random.default_rng(8)
-    for name in ["brain", "belzhab", "B3/S23/C256"]:
+    for name in list(GEN_RULES.values()) + ["B3/S23/C256"]:
         rule = parse_any(name)
         cells = rng.integers(0, rule.states, size=(1000, 1056), dtype=np.uint8)
         planes = pack_generations_for(torch.from_numpy(cells).cuda(), rule)
-        for g, tile in [(1, None), (8, None), (5, (7, 3))]:
+        for g, tile in [(1, None), (8, None), (16, None), (32, None),
+                        (5, (7, 3))]:
             kwargs = dict(rule=rule, topology=Topology(topology),
                           gens_per_call=g, tile=tile)
             got = cuda_stencil.multi_step_generations_kernel(planes, 2 * g + 3, **kwargs)

@@ -20,7 +20,7 @@ from gameoflifewithactors_torch.ops.stencil import Topology
 from gameoflifewithactors_torch.parallel.batched import multi_step_kernel_batched
 from gameoflifewithactors_torch.parallel.mesh import make_mesh
 
-from chip_smoke import ltl_every_form   # every instantiation of the LtL kernel
+from chip_smoke import GEN_RULES, ltl_every_form   # B3's rule paths, B4's forms
 
 
 def _need_cuda():
@@ -45,12 +45,14 @@ def _codes(batch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("topology", ["torus", "dead"])
 def test_generations_slab_kernel_matches_plain_version(topology):
+    """A rule on each rule path of B3 and C = 256, at g up to 32."""
     _need_cuda()
-    for name in ["brain", "B2/S345/C5", "B3/S23/C256"]:
+    for name in list(GEN_RULES.values()) + ["B3/S23/C256"]:
         rule = parse_any(name)
         b = n_planes(rule.states)
         for batch, rows, wp in [(1, 40, 3), (4, 530, 32), (8, 72, 5)]:
-            for g, tile in [(1, None), (3, None), (16, None), (5, (7, 3))]:
+            for g, tile in [(1, None), (3, None), (16, None), (32, None),
+                            (5, (7, 3))]:
                 ext = _words((batch, b, rows + 2 * g, wp), 21 + g)
                 for code in (0, 3, _codes(batch)):
                     kwargs = dict(rule=rule, topology=Topology(topology),

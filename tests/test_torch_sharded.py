@@ -347,9 +347,10 @@ def test_slab_wrappers_refuse_what_the_kernels_cannot_take():
     assert not cuda_stencil.supported_ltl_slab((40, 2), t_parse("bosco"), 40)
     assert not cuda_stencil.supported_ltl_slab(
         (40, 2), t_parse("R2,C3,M1,S3..8,B5..9"), 2)
-    # tiles: the full-grid tile, no wider than the band, rows evened out
+    # tiles: the full-grid tile (28 words: one warp of 30 written words
+    # with the halo), no wider than the band, rows evened out
     assert cuda_stencil._resolve_generations_slab(2, 16, 4128, 512, None) \
-        == (16, 65, 64)
+        == (16, 188, 28)
     # (the LtL tile's 256 rows evened over 4116: 16 tiles of 258 rows)
     assert cuda_stencil._resolve_ltl_slab(t_parse("bosco"), 2, 4116, 512,
                                           None) == (2, 258, 32)
