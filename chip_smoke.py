@@ -8,11 +8,14 @@ Phases, each unguarded (any failure exits non-zero before the last line):
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every kernel from ``csrc/`` (one ``nvcc``
    per source, all started together; time, registers, spills, the SASS
-   inner loop).
+   inner loop per output row of every instantiation of B1-B4), and the
+   rule paths of B3 and of B1/B2 against their wrappers' encodings.
 2. Each kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer words), over rules, topologies, shapes up to
    16384², generations per call, edge codes (one per batch and one per
-   band) and seam-crossing gliders; B3 on each rule path, at g up to 32
+   band) and seam-crossing gliders; B1 on each rule path and on rows that
+   fit one warp; B2's lane form with frozen slots, up to the serving
+   lanes' shapes; B3 on each rule path, at g up to 32
    and on a tile that divides neither axis; B4 and its slab form at every radius
    1..7, box and diamond, M0 and M1, at g in {1, 2, 4}; the slab forms of
    B3 and B4 on batches of 1, 4 and 8 bands, b = 2..8 planes, and a
@@ -26,7 +29,8 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    chunk, no full-grid kernel), each held against its single-device run,
    and the three on a flattened (2, 2) mesh under DEAD at 4096²; then the
    CLI in a subprocess for each rule family, with and without ``--mesh
-   bands``. Then the session service (kernel B2): a full
+   bands``. Then the session service (B2's lane form, no other launch
+   and no ``torch.cat`` on the card): a full
    256-slot lane of 1024² B3/S23 TORUS sessions, 64 B36/S23 DEAD sessions
    and one 16384² session on mixed cursors through ``SessionService``,
    every grid held against its own dedicated ``Engine`` run, compaction
@@ -34,7 +38,9 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    HTTP in a subprocess.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
-   card could take, and a depth and tile sweep; the serving rate; the
+   card could take, and a depth and tile sweep; B1 on each rule path; B2's
+   lane form at the serving lanes beside a lane chunk and the slab form;
+   the serving rate; the
    slab kernels at the mesh's 4-band shapes, a mesh chunk (exchange,
    launch, crop) beside its launch, and the mesh paths' rates.
 
@@ -300,6 +306,32 @@ def gen_rows(label: str, n: int) -> str:
            f"{'slab' if m.group(2) == '1' else 'full grid'})"
 
 
+def packed_rows(label: str, n: int) -> str:
+    """For a B1/B2 instantiation (``ILi0ELi2ELi1EE``: the grid form, the
+    equality path over two counts, a whole row per warp wrapping), its row
+    loop's instructions per output row: the loop is unrolled over a ring
+    of three rows."""
+    m = re.fullmatch(r"ILi([01])ELi(\d)ELi([012])EE", label)
+    if not m:
+        return ""
+    path = f"{m.group(2)} count(s)" if m.group(2) != "0" else "table"
+    cols = ("halo words", "row, torus", "row, dead")[int(m.group(3))]
+    return f" ({n / 3:.1f} per row; {'slab' if m.group(1) == '1' else 'grid'}, " \
+           f"rule path {path}, {cols})"
+
+
+# the instantiations of B1 and B2: (form, rule path, columns) as template
+# labels; B1 builds the grid form, B2 the slab form (halo words only) and
+# the grid form for its lanes
+PACKED_LABELS = {
+    "life_packed": [f"ILi0ELi{k}ELi{c}EE" for k in range(5) for c in range(3)],
+    "life_slab": [f"ILi1ELi{k}ELi0EE" for k in range(5)]
+    + [f"ILi0ELi{k}ELi{c}EE" for k in range(5) for c in range(3)],
+}
+PACKED_RULES = {  # a B/S rule on each of B1/B2's rule paths
+    1: "B2/S", 2: "B3/S23", 3: "B36/S23", 4: "B3/S245", 0: "B03/S23"}
+
+
 GEN_RULES = {  # a rule on each of B3's rule paths (equality over K counts, table)
     1: "brain", 2: "belzhab", 3: "B2/S34/C5", 4: "starwars",
     0: "B0/S8/C4"}
@@ -468,6 +500,63 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     return worst
 
 
+def check_lane_kernel(cs, rng, parse_rule, Topology) -> int:
+    """Phase 2 for B2's lane form: one launch of ``multi_step_lane_kernel``
+    against ``lane_step_reference`` (the row exchange, the slab form's
+    plain version, the crop and the select) on lanes whose rows fit one
+    warp and lanes that do not, a rule on each rule path, every depth up to 32 that
+    the grids take, with a mask that freezes slots (each frozen slot
+    bit-identical to its input), then the serving lanes at their shapes.
+    Returns the largest error (0)."""
+    import torch
+
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=rng,
+                             device=rng.device, dtype=torch.int64).to(torch.int32)
+
+    cases, worst = 0, 0
+
+    def hold(grids, g, rule, topology, mask):
+        nonlocal cases, worst
+        got = cs.multi_step_lane_kernel(grids, g, mask, rule=rule,
+                                        topology=topology, gens_per_call=g)
+        want = cs.lane_step_reference(grids, g, rule=rule, topology=topology,
+                                      mask=mask)
+        err = max_abs_err(got, want)
+        check(err == 0, f"B2 lane form != plain at {tuple(grids.shape)} "
+                        f"{rule} {topology} g={g}")
+        if mask is not None:
+            frozen = (mask == 0).nonzero().flatten()
+            check(torch.equal(got[frozen], grids[frozen]),
+                  f"B2 lane form changed a frozen slot at {tuple(grids.shape)}")
+        worst = max(worst, err)
+        cases += 1
+
+    for shape in [(3, 20, 1), (4, 40, 5), (5, 33, 32), (2, 24, 33), (3, 70, 64)]:
+        grids = words(shape)
+        mask = torch.tensor([1, 0] * 3, dtype=torch.int32,
+                            device=rng.device)[:shape[0]]
+        for name in PACKED_RULES.values():
+            rule = parse_rule(name)
+            for topology in Topology:
+                for g in (1, 3, 8, 16, 32):
+                    if g <= shape[1]:
+                        hold(grids, g, rule, topology, mask if g != 8 else None)
+    # the serving lanes: 1024^2 sessions at g = 8 and the 13-step
+    # remainder chunk of 5, a quarter of the slots frozen; one 16384^2
+    for shape, gs in [((256, 1024, 32), (8, 5)), ((64, 1024, 32), (8,)),
+                      ((1, 16384, 512), (8, 5))]:
+        grids = words(shape)
+        mask = (torch.arange(shape[0], device=rng.device) % 4 != 1).to(torch.int32)
+        for name in ("B3/S23", "B36/S23"):
+            for topology in Topology:
+                for g in gs:
+                    hold(grids, g, parse_rule(name), topology, mask)
+    print(f"B2 lane form vs plain: {cases} cases bit-identical (tolerance 0), "
+          f"frozen slots unchanged, max_abs_err {worst}")
+    return worst
+
+
 def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
     """Phase 2 for the slab forms of B3 and B4 against their plain
     versions: batches of 1, 4 and 8 bands with one code per batch (0, 3)
@@ -546,7 +635,7 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
 
 
 MESH_PATHS = [  # (kernel, rule, family's default depth attribute)
-    ("life_slab", "B3/S23", "DEFAULT_GENS_PER_CALL"),
+    ("life_slab", "B3/S23", "DEFAULT_BAND_GENS_PER_CALL"),
     ("life_generations_slab", "brain", "DEFAULT_GENERATIONS_GENS_PER_CALL"),
     ("life_ltl_slab", "bosco", "DEFAULT_LTL_GENS_PER_CALL"),
 ]
@@ -671,6 +760,22 @@ def serve_phase(cs, card: str) -> dict:
     svc = SessionService(registry=reg, admission=AdmissionController(
         registry=reg))
     check(svc.device.type == "cuda", f"service on {svc.device}")
+    # count the lane-form launches and every torch.cat on the card while
+    # the service steps: the lanes must launch only B2's lane form and
+    # build no extended copy of a lane
+    seen = {"lane": 0, "cat": 0}
+    launch_lane, cat = cs._launch_lane, torch.cat
+
+    def counted_lane(*args, **kwargs):
+        seen["lane"] += 1
+        return launch_lane(*args, **kwargs)
+
+    def counted_cat(tensors, *args, **kwargs):
+        tensors = list(tensors)
+        if any(t.is_cuda for t in tensors):
+            seen["cat"] += 1
+        return cat(tensors, *args, **kwargs)
+
     reset_launches(cs)
     sessions = []   # (sid, spec, rng_seed, generations)
     for spec, count, first in families:
@@ -685,24 +790,28 @@ def serve_phase(cs, card: str) -> dict:
           f"lanes {lanes}")
     # mixed cursors: even sessions owe 8 generations, odd ones 13 (the
     # single session 13), then 2000 each in one request per session
-    g = cs.DEFAULT_GENS_PER_CALL
+    g = cs.DEFAULT_BAND_GENS_PER_CALL
     for k, sess in enumerate(sessions):
         n = 13 if k % 2 or sess[1]["height"] == MAIN_SHAPE[0] else 8
         svc.step(sess[0], n, pump=False)
         sess[3] += n
-    d1 = svc.pump()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for sess in sessions:
-        svc.step(sess[0], SERVE_GENERATIONS, pump=False)
-        sess[3] += SERVE_GENERATIONS
-    d2 = svc.pump()
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    cs._launch_lane, torch.cat = counted_lane, counted_cat
+    try:
+        d1 = svc.pump()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for sess in sessions:
+            svc.step(sess[0], SERVE_GENERATIONS, pump=False)
+            sess[3] += SERVE_GENERATIONS
+        d2 = svc.pump()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cs._launch_lane, torch.cat = launch_lane, cat
     device_ms = start.elapsed_time(end)
     counts = launches(cs)
     # planned: per lane, the 8-generation dispatch and the 5 more the
@@ -716,13 +825,17 @@ def serve_phase(cs, card: str) -> dict:
           f"{expected}")
     check(all(v == 0 for k, v in counts.items() if k != "life_slab"),
           f"serving launched another kernel: {counts}")
+    check(seen["lane"] == expected and seen["cat"] == 0,
+          f"serving made {seen['lane']} lane-form launches and {seen['cat']} "
+          "torch.cat calls on the card; expected only lane launches, no cat")
     cells = sum(s[1]["height"] * s[1]["width"] for s in sessions)
     rate = cells * SERVE_GENERATIONS / wall
     print(f"serving main path: {len(sessions)} sessions in {len(lanes)} lanes "
           f"(capacities {sorted(ln['capacity'] for ln in lanes)}), cursors 8/13 "
           f"then {SERVE_GENERATIONS} generations per session, {d1} + {d2} "
           f"dispatches, {counts['life_slab']} life_slab launches == planned, "
-          f"no other kernel")
+          f"all {seen['lane']} of its lane form, no torch.cat on the card, no "
+          "other kernel")
     print(f"serving timed: {SERVE_GENERATIONS} generations of {cells} cells "
           f"in {len(sessions)} requests + one pump ({d2} dispatches): "
           f"{wall:.4f} s host clock incl. sync, {device_ms / 1e3:.4f} s "
@@ -887,8 +1000,11 @@ def main() -> int:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-        # every instantiation of B4 (28) and B3 (70) without spill or frame
-        least = {"life_ltl": ("B4", 28), "life_generations": ("B3", 70)}
+        # every instantiation of B4 (28), B3 (70), B1 (15) and B2 (20)
+        # without spill or frame
+        least = {"life_ltl": ("B4", 28), "life_generations": ("B3", 70),
+                 "life_packed": ("B1", len(PACKED_LABELS["life_packed"])),
+                 "life_slab": ("B2", len(PACKED_LABELS["life_slab"]))}
         if name in least:
             frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                                 r"stores, (\d+) bytes spill loads", built.log)
@@ -897,17 +1013,20 @@ def main() -> int:
                   f"{least[name][0]} instantiations with a stack frame or "
                   f"spills: {frames}")
         total, loops = sass_counts(built.path, _build.find_nvcc())
-        if name == "life_packed":
-            check(bool(loops), "no shared-memory loop found in B1's SASS")
+        if name in PACKED_LABELS:
+            found = {label for label, _, _ in loops}
+            check(set(PACKED_LABELS[name]) <= found,
+                  f"{name} row loops missing: {sorted(found)}")
         if name == "life_generations":
             found = {label for label, _, _ in loops}
             check(all(f"ILi{b}ELb{s}ELi{k}EE" in found for b in (2, 8)
                       for s in (0, 1) for k in GEN_RULES),
                   f"B3 row loops missing at b = 2 or 8: {sorted(found)}")
+        rows_of = {"life_ltl": ltl_rows, "life_generations": gen_rows}.get(
+            name, packed_rows)
         print(f"  sass: {total} instructions; shortest shared-memory loop per "
               "kernel function: " + ("; ".join(
-                  f"{label} {n} instructions, {lop3} LOP3"
-                  f"{ltl_rows(label, n) if name == 'life_ltl' else gen_rows(label, n)}"
+                  f"{label} {n} instructions, {lop3} LOP3{rows_of(label, n)}"
                   for label, n, lop3 in loops) or "none found"))
     # the kernel's rule path (life_generations_rule_path) against the
     # wrapper's encoding, for every born set and every survive set
@@ -920,6 +1039,16 @@ def main() -> int:
     check(not bad, f"B3 rule paths differ from the wrapper's encoding: {bad[:4]}")
     print("B3 rule path == the wrapper's encoding for all 512 x 512 born and "
           "survive sets")
+    # B1/B2's rule path (life_packed_rule_path) against theirs
+    from gameoflifewithactors_torch.models.rules import Rule
+    rule_path = cs._library("life_packed").life_packed_rule_path
+    sets = [frozenset(s) for s in sets]
+    bad = [(bm, sm) for bm in range(512) for sm in range(512)
+           if rule_path(bm, sm) != len(cs._generations_rule_encoding(
+               Rule(born=sets[bm], survive=sets[sm])))]
+    check(not bad, f"B1 rule paths differ from the wrapper's encoding: {bad[:4]}")
+    print("B1/B2 rule path == the wrapper's encoding for all 512 x 512 born "
+          "and survive sets")
     stamp("the build")
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
@@ -944,6 +1073,25 @@ def main() -> int:
                                     f"{topology} g={g} n={n}")
                     worst["life_packed"] = max(worst["life_packed"], err)
                     cases += 1
+    # a rule on each rule path, on grids whose rows fit one warp (the row
+    # forms) and grids that do not, at ragged tiles and the default one
+    for name in PACKED_RULES.values():
+        rule = parse_rule(name)
+        for shape in [(40, 96), (72, 1024), (100, 1056), (1000, 16384)]:
+            p = bitpack.pack(seeds.bernoulli(rng, shape, 0.5))
+            for topology in Topology:
+                for g, tile in [(8, None), (16, None), (5, (7, 3)),
+                                (3, (9, 64))]:
+                    n = 2 * g + 3
+                    got = cs.multi_step_kernel(p, n, rule=rule, topology=topology,
+                                               gens_per_call=g, tile=tile)
+                    want = cs.multi_step_reference(
+                        p, n, rule=rule, topology=topology, gens_per_call=g,
+                        tile=tile)
+                    err = max_abs_err(got, want)
+                    check(err == 0, f"B1 kernel != plain at {shape} {name} "
+                                    f"{topology} g={g} tile={tile} n={n}")
+                    cases += 1
     # gliders crossing word boundaries and the torus seams: 4*64 generations
     # move a glider (64, 64) cells, which on a 64-row torus is a pure shift
     # of 64 columns
@@ -962,6 +1110,7 @@ def main() -> int:
           f"max_abs_err {worst['life_packed']}")
     worst["life_slab"] = check_slab_kernel(cs, bitpack, seeds, rules, rng,
                                            CONWAY, Topology)
+    worst["life_slab_lane"] = check_lane_kernel(cs, rng, parse_rule, Topology)
 
     cases = 0
     # each rule path (GEN_RULES), C = 2^b (starwars: C = 4, b = 2; C = 256,
@@ -1138,10 +1287,13 @@ def main() -> int:
     stamp("the main paths and the entry points")
 
     serving = serve_phase(cs, card)
-    # B2 runs on two main paths: the serving lanes and the B/S mesh
-    main_launches["life_slab"] = serving["launches"] + mesh["life_slab"]["launches"]
-    print(f"life_slab launches: {serving['launches']} serving + "
-          f"{mesh['life_slab']['launches']} on the B3/S23 mesh path")
+    # B2 runs on two main paths: its lane form serves the lanes, its slab
+    # form the B/S mesh
+    main_launches["life_slab_lane"] = serving["launches"]
+    main_launches["life_slab"] = mesh["life_slab"]["launches"]
+    print(f"life_slab launches: {serving['launches']} of the lane form serving, "
+          f"{mesh['life_slab']['launches']} of the slab form on the B3/S23 "
+          "mesh path")
     stamp("the serving main path")
 
     # -- 4. timing at the main path's shape ------------------------------------
@@ -1166,72 +1318,98 @@ def main() -> int:
     packed_ms = timed_ms(lambda: multi_step_packed(p, 10, rule=CONWAY), 1) / 10
     bound_ms, bytes_ms, ops_ms = bound(2 * H * Wp * 4,
                                        g * H * Wp * ops_per_word(CONWAY))
-    print(f"B1 kernel {MAIN_SHAPE[0]}^2 g={g}: {ms:.5f} ms/launch, "
+    th, tw = cs.DEFAULT_TILE
+    print(f"B1 kernel {MAIN_SHAPE[0]}^2 g={g} tile {th}x{tw}: {ms:.5f} ms/launch "
+          f"({ms / g * 1e3:.2f} us/gen), "
           f"{cells * g / (ms / 1e3):.4e} cell-updates/s; bound {bound_ms:.5f} ms "
           f"(bytes {bytes_ms:.5f}, ops {ops_ms:.5f}: {ops_per_word(CONWAY)} "
           f"ops/word/gen, {sms} SMs x {INT32_LANES_PER_SM} x "
-          f"{clock_hz / 1e6:.0f} MHz)  [{card}]")
+          f"{clock_hz / 1e6:.0f} MHz), {bound_ms / ms:.1%} of it  [{card}]")
     print(f"B1 plain version (multi_step_reference, no yardstick): {plain_ms:.4f} "
           f"ms/launch; plain packed path (multi_step_packed, no yardstick): "
           f"{packed_ms:.4f} ms/generation  [{card}]")
     sweep = []
-    for gs, tile in [(8, (64, 64)), (8, (128, 32)), (8, (32, 128)), (16, (64, 64)),
-                     (4, (64, 64))]:
-        t = timed_ms(lambda: cs.multi_step_kernel(
-            p, gs * 50, rule=CONWAY, gens_per_call=gs, tile=tile), 1) / (50 * gs)
-        sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
+    for gs in (8, 16, 32):
+        for tile in [(192, 28), (256, 28), (112, 58), (160, 58), (192, 58),
+                     (128, 88)]:
+            t = timed_ms(lambda: cs.multi_step_kernel(
+                p, gs * 40, rule=CONWAY, gens_per_call=gs, tile=tile),
+                1) / (40 * gs)
+            sweep.append(f"g={gs} tile={tile[0]}x{tile[1]}: {t * 1e3:.2f} us/gen")
     print("B1 sweep:", "; ".join(sweep), f" [{card}]")
+    paths = []
+    for k, name in PACKED_RULES.items():
+        rule = parse_rule(name)
+        t = timed_ms(lambda: cs.multi_step_kernel(p, g * 50, rule=rule), 1) / 50
+        b_ms = bound(2 * H * Wp * 4, g * H * Wp * ops_per_word(rule))[0]
+        paths.append(f"{name} ({k or 'table'}{' count(s)' if k else ''}): "
+                     f"{t:.5f} ms/launch, {b_ms / t:.1%} of its "
+                     f"{ops_per_word(rule)}-op bound")
+    print(f"B1 rule paths {MAIN_SHAPE[0]}^2 g={g}:", "; ".join(paths), f" [{card}]")
     rows.append(("life_packed", "life_packed", 160, ms, plain_ms, bound_ms,
                  ops_ms >= bytes_ms))
 
-    # B2 at the serving shapes: a full lane of 1024^2 sessions, the DEAD
-    # family's 64-slot lane and the 16384^2 session's band, at g = 8
+    # B2's lane form at the serving shapes: a full lane of 1024^2 sessions,
+    # the DEAD family's 64-slot lane and the 16384^2 session, at the lanes'
+    # depth, its
+    # bound counting each grid's own rows; a lane chunk (the runner's
+    # launch with a mask, buffers included) beside the launch alone, and
+    # the slab form on the same lane's extended copy
     from gameoflifewithactors_torch.parallel.batched import \
         multi_step_kernel_batched
-    g = cs.DEFAULT_GENS_PER_CALL
-    slab_ms = {}
+    g = cs.DEFAULT_BAND_GENS_PER_CALL
+    lane_ms = {}
     for batch, (bh, bw), rule, topology in [
             (LANE_SESSIONS, LANE_SHAPE, CONWAY, Topology.TORUS),
             (DEAD_SESSIONS, LANE_SHAPE, parse_rule("B36/S23"), Topology.DEAD),
             (1, MAIN_SHAPE, CONWAY, Topology.TORUS)]:
         lane = torch.stack([bitpack.pack(seeds.bernoulli(rng, (bh, bw), 0.35))
                             for _ in range(batch)])
-        code = 3 if topology is Topology.DEAD else 0
-        ext = torch.cat([lane[:, -g:], lane, lane[:, :g]], dim=1)
-        He, Wq = ext.shape[1:]
-        t = timed_ms(lambda: cs.slab_step_kernel(
-            ext, g, rule=rule, topology=topology, edge_code=code), 50)
+        mask = cs._lane_mask(np.ones(batch, np.uint32), lane)
+        t = timed_ms(lambda: cs.multi_step_lane_kernel(
+            lane, g, mask, rule=rule, topology=topology, gens_per_call=g), 50)
         chunk = timed_ms(lambda: multi_step_kernel_batched(
             lane, g * 20, np.ones(batch, np.uint32), rule=rule,
             topology=topology), 1) / 20
-        b_ms, by_ms, op_ms = bound(2 * batch * He * Wq * 4,
-                                   g * batch * He * Wq * ops_per_word(rule))
-        slab_ms[(batch, bh)] = t
+        code = 3 if topology is Topology.DEAD else 0
+        ext = torch.cat([lane[:, -g:], lane, lane[:, :g]], dim=1)
+        slab_t = timed_ms(lambda: cs.slab_step_kernel(
+            ext, g, rule=rule, topology=topology, edge_code=code), 50)
+        Wq = lane.shape[2]
+        b_ms, by_ms, op_ms = bound(2 * batch * bh * Wq * 4,
+                                   g * batch * bh * Wq * ops_per_word(rule))
+        lane_ms[(batch, bh)] = t
         cu = batch * bh * bw * g / (t / 1e3)
-        print(f"B2 kernel {batch} x {bh}x{bw} {rule.notation} {topology.value} "
-              f"(ext {He}x{Wq} words) g={g} "
-              f"code={code}: {t:.5f} ms/launch, {cu:.4e} cell-updates/s; bound "
-              f"{b_ms:.5f} ms (bytes {by_ms:.5f}, ops {op_ms:.5f}); lane chunk "
-              f"(exchange + B2 + crop and mask select) {chunk:.5f} ms  [{card}]")
+        _, lth, ltw = cs._resolve_lane(g, bh, Wq, None)
+        print(f"B2 lane form {batch} x {bh}x{bw} {rule.notation} {topology.value} "
+              f"g={g} tile {lth}x{ltw}: {t:.5f} ms/launch, {cu:.4e} "
+              f"cell-updates/s; bound {b_ms:.5f} ms (bytes {by_ms:.5f}, ops "
+              f"{op_ms:.5f}), {b_ms / t:.1%} of it; lane chunk (the runner: "
+              f"mask, buffers, launch) {chunk:.5f} ms, {chunk / t - 1:+.1%} over "
+              f"the launch; the slab form on the extended copy "
+              f"{tuple(ext.shape)} code={code} {slab_t:.5f} ms  [{card}]")
         if batch == LANE_SESSIONS:
-            slab_row = (t, b_ms, op_ms >= by_ms, ext)
-        del lane, ext
-    t, b_ms, by_ops, ext = slab_row
-    plain_ms = timed_ms(lambda: cs.slab_step_reference(ext, g, rule=CONWAY), 3)
-    print(f"B2 plain version (slab_step_reference, no yardstick) at "
-          f"{LANE_SESSIONS} x {LANE_SHAPE[0]}^2: {plain_ms:.4f} ms/launch  [{card}]")
+            lane_row = (t, b_ms, op_ms >= by_ms, lane)
+        del ext
+    t, b_ms, by_ops, lane = lane_row
+    plain_ms = timed_ms(lambda: cs.lane_step_reference(lane, g, rule=CONWAY), 3)
+    print(f"B2 lane form plain version (lane_step_reference: exchange, slab "
+          f"plain version, crop, no yardstick) at {LANE_SESSIONS} x "
+          f"{LANE_SHAPE[0]}^2: {plain_ms:.4f} ms/launch  [{card}]")
     sweep = []
-    for gs in (4, 8, 16):   # bands with a gs-row halo: cut or widen ext
-        e = (ext[:, g - gs:ext.shape[1] - g + gs] if gs <= g else torch.cat(
-            [ext[:, -(gs - g):], ext, ext[:, :gs - g]], dim=1)).contiguous()
-        tt = timed_ms(lambda: cs.slab_step_kernel(e, gs, rule=CONWAY), 20)
-        sweep.append(f"g={gs}: {tt / gs * 1e3:.2f} us/gen")
-    print(f"B2 sweep ({LANE_SESSIONS} x {LANE_SHAPE[0]}^2 lane):", "; ".join(sweep),
-          f" [{card}]")
+    for gs in (4, 8, 16):
+        for rows_ in (128, 205, 256, 512):
+            tt = timed_ms(lambda: cs.multi_step_lane_kernel(
+                lane, gs, rule=CONWAY, gens_per_call=gs,
+                tile=(rows_, LANE_SHAPE[1] // 32)), 20)
+            sweep.append(f"g={gs} tile={rows_}x32: {tt / gs * 1e3:.2f} us/gen")
+    print(f"B2 lane form sweep ({LANE_SESSIONS} x {LANE_SHAPE[0]}^2 lane):",
+          "; ".join(sweep), f" [{card}]")
     stamp("timing B1 and B2")
-    rows.append(("life_slab", "life_slab", 748, t, plain_ms, b_ms, by_ops))
+    rows.append(("life_slab_lane", "life_slab", 748, t, plain_ms, b_ms, by_ops))
+    del lane, lane_row
     kernel_ms = sum(
-        n * slab_ms[key] for key, n in [
+        n * lane_ms[key] for key, n in [
             ((LANE_SESSIONS, LANE_SHAPE[0]), SERVE_GENERATIONS // g),
             ((DEAD_SESSIONS, LANE_SHAPE[0]), SERVE_GENERATIONS // g),
             ((1, MAIN_SHAPE[0]), SERVE_GENERATIONS // g)])
@@ -1242,7 +1420,6 @@ def main() -> int:
           f"{extra:.3f} ms per dispatch beyond the kernel's device time "
           f"({extra * serving['dispatches'] / (serving['wall'] * 1e3):.1%} of the "
           f"request)  [{card}]")
-    del ext, slab_row
 
     # B3: Brian's Brain
     brain = parse_any("brain")
@@ -1354,9 +1531,10 @@ def main() -> int:
     planes = pack_generations_for((u * brain.states).to(torch.uint8), brain)
     del u
     for name, source, line, kernel, plain, make, state, rule, g, depth, opw in [
-            ("life_slab", "life_slab", None, cs.slab_step_kernel,
+            ("life_slab", "life_slab", 748, cs.slab_step_kernel,
              cs.slab_step_reference, sharded.make_multi_step_kernel, grid,
-             CONWAY, cs.DEFAULT_GENS_PER_CALL, cs.DEFAULT_GENS_PER_CALL,
+             CONWAY, cs.DEFAULT_BAND_GENS_PER_CALL,
+             cs.DEFAULT_BAND_GENS_PER_CALL,
              ops_per_word(CONWAY)),
             ("life_generations_slab", "life_generations", 679,
              cs.slab_step_generations_kernel, cs.slab_step_generations_reference,

@@ -97,9 +97,9 @@
 #include <stddef.h>
 #include <stdint.h>
 
-namespace life_generations {
+#include "life_rule.cuh"
 
-constexpr int kMaxEntries = 4;   // counts the equality path tests
+namespace life_generations {
 
 // What one launch asks, as the entry points receive it.
 struct Launch {
@@ -112,13 +112,7 @@ struct Launch {
   void* stream;
 };
 
-// The rule path: K = 1..4 for a rule whose born and survive sets together
-// name K counts, all in 1..7 (the equality path), else 0 (the table).
-inline int rule_path(unsigned born, unsigned survive) {
-  const unsigned counts = (born | survive) & 0x1ffu;
-  const int n = __builtin_popcount(counts);
-  return (counts & 0x101u) || n == 0 || n > kMaxEntries ? 0 : n;
-}
+using life::rule_path;
 
 template <int B>
 int launch_planes(const Launch& l);
@@ -127,25 +121,25 @@ int launch_planes(const Launch& l);
 
 #ifdef GEN_PLANES
 
-#include "life_bits.cuh"
-#include "life_rule.cuh"
-
 namespace life_generations {
 
+using life::copy_word;
+using life::kAnd3;
+using life::kAndXnor;
 using life::kMajority;
 using life::kXor3;
+using life::kXorAnd;
 using life::lop3;
+using life::make_rule;
+using life::Rule;
+using life::rule_planes;
+using life::wait_copies;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanesOut = 30;       // lanes 1..30 of a warp write a word
 constexpr int kFar = 1 << 30;       // a row limit no band reaches
 
-constexpr int kNotBothXnor = 0x09;  // ~a & ~(b ^ c)
-constexpr int kAndXnor = 0x90;      // a & ~(b ^ c)
-constexpr int kOrAnd = 0xf8;        // a | (b & c)
-constexpr int kXorAnd = 0x78;       // a ^ (b & c)
-constexpr int kAnd3 = 0x80;         // a & b & c
 constexpr int kAndNotOr = 0xae;     // (~a & b) | c
 constexpr int kAndAndNot = 0x40;    // a & b & ~c
 
@@ -156,87 +150,6 @@ struct Args {
   const int* edge_codes;
   unsigned born, survive, states;
 };
-
-// Starts an asynchronous copy of one word from device to shared memory
-// (cp.async); wait_copies() waits for the thread's own copies, and a
-// barrier after it publishes them to the block.
-__device__ __forceinline__ void copy_word(uint32_t* dst, const uint32_t* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void wait_copies() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;" ::: "memory");
-#endif
-}
-
-// The rule on the equality path: for each of the K counts, the
-// all-ones/all-zero masks of its three bits and whether it is a birth
-// and a survival count.
-template <int K>
-struct Rule {
-  uint32_t n0[K], n1[K], n2[K];
-  uint32_t born[K], keep[K];
-};
-
-// The table path: life_rule.cuh's 9-entry tables.
-template <>
-struct Rule<0> {
-  life::RuleMasks table;
-};
-
-template <int K>
-__device__ __forceinline__ Rule<K> make_rule(unsigned born, unsigned survive) {
-  Rule<K> r;
-  if constexpr (K == 0) {
-    r.table = life::rule_masks(born, survive);
-  } else {
-    unsigned rest = (born | survive) & 0xfeu;   // counts 1..7, ascending
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int n = __ffs(rest) - 1;
-      rest &= rest - 1u;
-      r.n0[i] = 0u - (unsigned)(n & 1);
-      r.n1[i] = 0u - (unsigned)((n >> 1) & 1);
-      r.n2[i] = 0u - (unsigned)((n >> 2) & 1);
-      r.born[i] = 0u - ((born >> n) & 1u);
-      r.keep[i] = 0u - ((survive >> n) & 1u);
-    }
-  }
-  return r;
-}
-
-// The birth and survival planes at the count r0..r3 (r3 set only for
-// count 8): the equality path joins its counts' planes; the table path
-// gives one plane, birth where the cell is not alive and survival where
-// it is, which the transition may take for both.
-template <int K>
-__device__ __forceinline__ void rule_planes(const Rule<K>& rule, uint32_t alive,
-                                            uint32_t r0, uint32_t r1,
-                                            uint32_t r2, uint32_t r3,
-                                            uint32_t& born, uint32_t& keep) {
-  if constexpr (K == 0) {
-    born = keep = life::lookup(alive, r0, r1, r2, r3, rule.table);
-  } else {
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const uint32_t eq = lop3<kAndXnor>(
-          lop3<kNotBothXnor>(r0 ^ rule.n0[i], r1, rule.n1[i]), r2, rule.n2[i]);
-      if (i == 0) {
-        born = eq & rule.born[0];
-        keep = eq & rule.keep[0];
-      } else {
-        born = lop3<kOrAnd>(born, eq, rule.born[i]);
-        keep = lop3<kOrAnd>(keep, eq, rule.keep[i]);
-      }
-    }
-  }
-}
 
 // One row of a column walk: the word's state planes, its alive and
 // nonzero planes, and the horizontal sums of the alive words around it.

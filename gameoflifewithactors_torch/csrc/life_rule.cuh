@@ -1,42 +1,43 @@
-// The per-word arithmetic of a binary 3x3 B/S generation on packed words,
-// shared by the full-grid kernel (life_packed.cu, B1) and the row-band
-// kernel (life_slab.cu, B2). Bit i of a word is the cell 32*j + i of its
-// row; this is what ops/packed.py computes with whole tensors.
+// The rule lookup of the 3x3 count kernels, shared by B1 and B2
+// (life_packed_body.cuh: life_packed.cu and life_slab.cu) and B3
+// (life_generations.cu). A rule is two runtime 9-bit masks (born,
+// survive), so one build serves every rule; the lookup is sized to it:
 //
-// - Per word: west/east neighbour planes by funnel shift, the horizontal
-//   2-bit sums T = w+c+e and S = w+e, and the count T_north + S + T_south
-//   in four bit-planes (ops/packed.py::_row_sum_bits).
-// - The rule is two runtime 9-bit masks (born, survive), turned once per
-//   thread into all-ones/all-zero table words and looked up bit-sliced: a
-//   mux tree over the count bit-planes and the alive plane (17 LOP3s per
-//   word, no branches). It computes what ops/packed.py::apply_rule_planes
-//   does, and one build serves every B/S rule, B0 rules included. B3
-//   (life_generations.cu) takes the same lookup for rules with many counts.
+// - the equality path, for a rule whose born and survive sets together
+//   name K = 1..4 counts, all in 1..7 (rule_path): each count's equality
+//   plane is three LOP3 over the count's three low bit-planes against
+//   all-ones/all-zero masks of its bits (count 8 has low bits 000 and
+//   matches none of them), and joins the birth and survival planes;
+// - the table, for every other rule (count 0 or 8 named, more than four
+//   counts, or none): the 9-entry tables of both sets looked up
+//   bit-sliced, a mux tree over the count bit-planes and the alive plane
+//   (17 LOP3), the same for every rule, B0 rules included.
+//
+// cuda_stencil._generations_rule_encoding makes the same choice;
+// ops/packed.py::encoded_next_plane and
+// ops/packed_generations.py::encoded_rule_planes are the plain twins.
 
 #pragma once
 
 #include <stdint.h>
 
+#include "life_bits.cuh"
+
 namespace life {
+
+constexpr int kMaxEntries = 4;   // counts the equality path tests
+
+// The rule path: K = 1..4 for a rule whose born and survive sets together
+// name K counts, all in 1..7 (the equality path), else 0 (the table).
+inline int rule_path(unsigned born, unsigned survive) {
+  const unsigned counts = (born | survive) & 0x1ffu;
+  const int n = __builtin_popcount(counts);
+  return (counts & 0x101u) || n == 0 || n > kMaxEntries ? 0 : n;
+}
 
 // (sel & hi) | (~sel & lo): one LOP3.
 __device__ __forceinline__ uint32_t mux(uint32_t sel, uint32_t hi, uint32_t lo) {
   return (sel & hi) | (~sel & lo);
-}
-
-// Horizontal sums of the row word at `p` (p[-1] and p[1] are its
-// neighbours; rows carry a zero word at each end).
-__device__ __forceinline__ void row_sums(const uint32_t* p, uint32_t& c,
-                                         uint32_t& t0, uint32_t& t1,
-                                         uint32_t& s0, uint32_t& s1) {
-  c = p[0];
-  const uint32_t w = __funnelshift_l(p[-1], c, 1);  // (c << 1) | (left >> 31)
-  const uint32_t e = __funnelshift_r(c, p[1], 1);   // (c >> 1) | (right << 31)
-  const uint32_t wc = w ^ c;
-  t0 = wc ^ e;                 // T = w + c + e, low bit
-  t1 = (w & c) | (e & wc);     // T, high bit
-  s0 = w ^ e;                  // S = w + e
-  s1 = w & e;
 }
 
 // The rule as all-ones/all-zero masks: t[8*alive + count] for counts 0..7,
@@ -76,24 +77,95 @@ __device__ __forceinline__ uint32_t lookup(uint32_t alive, uint32_t r0,
   return mux(r3, mux(alive, m.keep8, m.born8), low);
 }
 
-// Next state of the 32 cells of `alive` from the north/south T sums and
-// the centre row's S sum: the count T_n + S + T_s in four bit-planes, then
-// the rule table looked up bit-sliced (lookup), the same for every rule.
-__device__ __forceinline__ uint32_t next_word(uint32_t alive, uint32_t tn0,
-                                              uint32_t tn1, uint32_t s0,
-                                              uint32_t s1, uint32_t ts0,
-                                              uint32_t ts1, const RuleMasks& m) {
-  const uint32_t a = tn0 ^ s0;
-  const uint32_t r0 = a ^ ts0;
-  const uint32_t k1 = (tn0 & s0) | (ts0 & a);
-  const uint32_t b = tn1 ^ s1;
-  const uint32_t sum = b ^ ts1;
-  const uint32_t k2 = (tn1 & s1) | (ts1 & b);
-  const uint32_t r1 = sum ^ k1;
-  const uint32_t k2b = sum & k1;
-  const uint32_t r2 = k2 ^ k2b;
-  const uint32_t r3 = k2 & k2b;   // count 8 (then r0 = r1 = r2 = 0)
-  return lookup(alive, r0, r1, r2, r3, m);
+// The rule on the equality path: for each of the K counts, the
+// all-ones/all-zero masks of its three bits and whether it is a birth
+// and a survival count.
+template <int K>
+struct Rule {
+  uint32_t n0[K], n1[K], n2[K];
+  uint32_t born[K], keep[K];
+};
+
+// The table path: the 9-entry tables.
+template <>
+struct Rule<0> {
+  RuleMasks table;
+};
+
+template <int K>
+__device__ __forceinline__ Rule<K> make_rule(unsigned born, unsigned survive) {
+  Rule<K> r;
+  if constexpr (K == 0) {
+    r.table = rule_masks(born, survive);
+  } else {
+    unsigned rest = (born | survive) & 0xfeu;   // counts 1..7, ascending
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int n = __ffs(rest) - 1;
+      rest &= rest - 1u;
+      r.n0[i] = 0u - (unsigned)(n & 1);
+      r.n1[i] = 0u - (unsigned)((n >> 1) & 1);
+      r.n2[i] = 0u - (unsigned)((n >> 2) & 1);
+      r.born[i] = 0u - ((born >> n) & 1u);
+      r.keep[i] = 0u - ((survive >> n) & 1u);
+    }
+  }
+  return r;
+}
+
+// The birth and survival planes at the count r0..r3 (r3 set only for
+// count 8), as B3's transition takes them: the equality path joins its
+// counts' planes; the table path gives one plane, birth where the cell is
+// not alive and survival where it is, which the transition may take for
+// both.
+template <int K>
+__device__ __forceinline__ void rule_planes(const Rule<K>& rule, uint32_t alive,
+                                            uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3,
+                                            uint32_t& born, uint32_t& keep) {
+  if constexpr (K == 0) {
+    born = keep = lookup(alive, r0, r1, r2, r3, rule.table);
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t eq = lop3<kAndXnor>(
+          lop3<kNotBothXnor>(r0 ^ rule.n0[i], r1, rule.n1[i]), r2, rule.n2[i]);
+      if (i == 0) {
+        born = eq & rule.born[0];
+        keep = eq & rule.keep[0];
+      } else {
+        born = lop3<kOrAnd>(born, eq, rule.born[i]);
+        keep = lop3<kOrAnd>(keep, eq, rule.keep[i]);
+      }
+    }
+  }
+}
+
+// The next alive plane of a binary B/S rule at the count r0..r3 (r3 read
+// on the table path only): on the equality path, for each count, the
+// cell's own entry (the survival mask where it is alive, the birth mask
+// where it is not; one LOP3) folded into the count's equality plane,
+// four LOP3 a count and one OR per further count -- B3/S23 costs 9.
+template <int K>
+__device__ __forceinline__ uint32_t next_alive(const Rule<K>& rule, uint32_t alive,
+                                               uint32_t r0, uint32_t r1,
+                                               uint32_t r2, uint32_t r3) {
+  if constexpr (K == 0) {
+    return lookup(alive, r0, r1, r2, r3, rule.table);
+  } else {
+    uint32_t next = 0u;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t entry = lop3<kMux>(alive, rule.keep[i], rule.born[i]);
+      // all-ones where the count is n and the cell's entry for n is set
+      const uint32_t hit = lop3<kAndXnor>(
+          lop3<kNotBothXnor>(lop3<kXorOrNot>(r0, rule.n0[i], entry), r1,
+                             rule.n1[i]),
+          r2, rule.n2[i]);
+      next = i == 0 ? hit : next | hit;
+    }
+    return next;
+  }
 }
 
 }  // namespace life

@@ -102,7 +102,7 @@ def default_gens_per_exchange(rule) -> int:
         return cuda_stencil.DEFAULT_GENERATIONS_GENS_PER_CALL
     if isinstance(rule, LtLRule):
         return cuda_stencil.DEFAULT_LTL_GENS_PER_CALL
-    return cuda_stencil.DEFAULT_GENS_PER_CALL
+    return cuda_stencil.DEFAULT_BAND_GENS_PER_CALL
 
 
 def _band_kernel_takes(rule, h: int, wp: int, mesh: Mesh, g: int,

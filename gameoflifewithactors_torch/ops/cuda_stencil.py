@@ -20,8 +20,12 @@ its own edge code where the caller gives one per band --
 
 - B2, ``_make_kernel`` / ``make_pallas_slab_step``: B/S words
   (:func:`slab_step_kernel`, ``csrc/life_slab.cu``), the step of the
-  batched lane runners in :mod:`..parallel.batched` and of the sharded
-  band runner in :mod:`..parallel.sharded`;
+  sharded band runner in :mod:`..parallel.sharded`; and its lane form
+  (:func:`multi_step_lane_kernel`), which steps a batch of whole grids and a
+  mask with no extended copy, the step of the batched lane runner in
+  :mod:`..parallel.batched` (its plain version,
+  :func:`lane_step_reference`, is the row exchange, the slab form's plain
+  version, the crop and the mask's select);
 - B3 slab, ``_make_gen_kernel`` / ``make_pallas_gen_slab_step``:
   Generations plane stacks (:func:`slab_step_generations_kernel`, the
   slab instantiations of ``csrc/life_generations.cu``);
@@ -48,19 +52,30 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.generations import GenRule
 from ..models.ltl import LtLRule
 from ..models.rules import Rule
+from ..parallel.halo import exchange_rows_stack
 from .packed import step_packed_slab
 from .packed_generations import n_planes, step_planes_slab
 from .packed_ltl import step_ltl_packed_slab
 from .stencil import Topology
 
-DEFAULT_GENS_PER_CALL = 8
-DEFAULT_TILE = (64, 64)   # (rows, words) each CUDA block owns
+# B1's depth and tile from the sweep on the card (PERF.md): a warp writes
+# 30 words of a row, so 58 words (60 computed with the halo) fill two
+# warps, and the tallest such tile whose slabs leave room for a second
+# block on the SM spends the fewest rows on the halo
+DEFAULT_GENS_PER_CALL = 16
+DEFAULT_TILE = (192, 58)   # (rows, words) each B1/B2 block owns
+# B2's chunk on a serving lane and a mesh band: the band must hold at least
+# this many rows, so it decides which lanes and bands the kernels take
+DEFAULT_BAND_GENS_PER_CALL = 8
 MAX_GENS_PER_CALL = 32    # one halo word per side covers 32 generations
+ROW_WORDS = 32            # a tile spanning a row of at most this many words
+                          # takes the row form: one warp, no halo word
 # Generations and Larger than Life: depth and tile from the sweeps on the
 # card (PERF.md)
 DEFAULT_GENERATIONS_GENS_PER_CALL = 16
@@ -71,18 +86,11 @@ DEFAULT_GENERATIONS_GENS_PER_CALL = 16
 _GENERATIONS_TILES = ((192, 28), (160, 28), (128, 28), (96, 28), (64, 28),
                       (32, 28), (16, 28), (16, 13), (8, 13), (8, 6), (4, 6),
                       (2, 6), (1, 6), (1, 1))
-MAX_GENERATIONS_COUNTS = 4   # counts B3's equality path tests
+MAX_GENERATIONS_COUNTS = 4   # counts the equality path of B1-B3 tests
 DEFAULT_LTL_GENS_PER_CALL = 4
 DEFAULT_LTL_TILE = (256, 32)
 DEFAULT_LTL_SEGMENT = 64  # most rows one LtL thread walks down a column
 MAX_LTL_BOUNDS = 32       # interval boundaries per set the LtL kernel takes
-# B2's tile keeps B1's 4096 words but is no wider than the band (a lane of
-# 1024-cell rows is 32 words wide), with about 256 rows at most; its rows
-# are then evened out so that the row tiles split the band evenly (a
-# 1040-row band takes 8 tiles of 130 rows, not 9 of 128 with 112 rows
-# computed beyond the band)
-_SLAB_TILE_WORDS = DEFAULT_TILE[0] * DEFAULT_TILE[1]
-_SLAB_MAX_TILE_ROWS = 256
 _SMEM_LIMIT = 232448      # bytes of shared memory one Hopper block may use
 _MAX_GRID_Y = 65535
 _MAX_GRID_Z = 65535
@@ -92,7 +100,7 @@ _MAX_GRID_Z = 65535
 KERNEL_LAUNCHES = 0             # B1, life_packed
 GENERATIONS_LAUNCHES = 0        # B3, life_generations, full grid
 LTL_LAUNCHES = 0                # B4, life_ltl, full grid
-SLAB_LAUNCHES = 0               # B2, life_slab
+SLAB_LAUNCHES = 0               # B2, life_slab, slab and lane forms
 GENERATIONS_SLAB_LAUNCHES = 0   # B3, life_generations, slab mode
 LTL_SLAB_LAUNCHES = 0           # B4, life_ltl, slab mode
 
@@ -140,13 +148,19 @@ def _checked_tile(tile, smem, what: str) -> Tuple[int, int]:
     return th, tw
 
 
+def _packed_smem(g: int):
+    """Shared memory of the B1/B2 tile: two buffers of padded slab rows,
+    ``tw + 4`` words each, or :data:`ROW_WORDS` where a row form holds a
+    whole row in a warp (counted for every tile narrower than that, which
+    the launch may put in a row form)."""
+    return lambda th, tw: 2 * (th + 2 * g) * max(tw + 4, ROW_WORDS) * 4
+
+
 def _resolve(gens_per_call: Optional[int], tile: Optional[Tuple[int, int]]
              ) -> Tuple[int, int, int]:
     """(g, th, tw) of the binary 3x3 kernel."""
     g = _depth(gens_per_call, DEFAULT_GENS_PER_CALL)
-    # two padded slabs of int32 words
-    th, tw = _checked_tile(tile or DEFAULT_TILE,
-                           lambda th, tw: 2 * (th + 2 * g) * (tw + 4) * 4,
+    th, tw = _checked_tile(tile or DEFAULT_TILE, _packed_smem(g),
                            f"{g} generations per call")
     return g, th, tw
 
@@ -193,10 +207,6 @@ def _resolve_ltl(rule: LtLRule, gens_per_call: Optional[int],
     return g, th, tw
 
 
-def _slab_smem(g: int):
-    return lambda th, tw: 2 * (th + 2 * g) * (tw + 4) * 4   # as B1's slabs
-
-
 def _even_rows(He: int, tile: Tuple[int, int], smem) -> Tuple[int, int]:
     """``tile`` narrowed to a ``Wp``-word band by the caller, its rows
     evened out over the ``He`` extended rows: as many row tiles as
@@ -212,19 +222,37 @@ def _even_rows(He: int, tile: Tuple[int, int], smem) -> Tuple[int, int]:
 
 def _resolve_slab(gens: int, He: int, Wp: int,
                   tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
-    """(g, th, tw) of the B2 kernel for ``(He, Wp)`` bands."""
-    g = _depth(gens, DEFAULT_GENS_PER_CALL)
+    """(g, th, tw) of the B2 slab form for ``(He, Wp)`` bands: B1's default
+    tile, no wider than the band, its rows evened out over the band (a
+    4112-row band takes 21 tiles of 196 rows, not 22 of 192 with 112 rows
+    computed beyond it)."""
+    g = _depth(gens, DEFAULT_BAND_GENS_PER_CALL)
+    smem = _packed_smem(g)
     if tile is None:
-        tw = max(1, min(DEFAULT_TILE[1], Wp))
-        th = min(_SLAB_MAX_TILE_ROWS, _SLAB_TILE_WORDS // tw)
-        tile = (-(-He // max(1, round(He / th))), tw)
-    th, tw = _checked_tile(tile, _slab_smem(g), f"{g} generations per call")
+        tile = _even_rows(He, (DEFAULT_TILE[0], max(1, min(DEFAULT_TILE[1], Wp))),
+                          smem)
+    th, tw = _checked_tile(tile, smem, f"{g} generations per call")
+    return g, th, tw
+
+
+def _resolve_lane(gens: int, H: int, Wp: int,
+                  tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """(g, th, tw) of the B2 lane form for ``(H, Wp)`` grids: B1's default
+    tile, as wide as the grid where its rows are at most
+    :data:`ROW_WORDS` words (the row form: one warp a row, no halo word),
+    else no wider than the grid, its rows evened out over the grid."""
+    g = _depth(gens, DEFAULT_BAND_GENS_PER_CALL)
+    smem = _packed_smem(g)
+    if tile is None:
+        tw = Wp if Wp <= ROW_WORDS else min(DEFAULT_TILE[1], Wp)
+        tile = _even_rows(H, (DEFAULT_TILE[0], max(1, tw)), smem)
+    th, tw = _checked_tile(tile, smem, f"{g} generations per call")
     return g, th, tw
 
 
 def supported_slab(shape, gens: int, *, batch: int = 1,
                    tile: Optional[Tuple[int, int]] = None) -> bool:
-    """Whether the B2 kernel takes ``batch`` halo-extended ``(He, Wp)``
+    """Whether the B2 slab form takes ``batch`` halo-extended ``(He, Wp)``
     bands at ``gens`` generations per launch: 1..32 generations, a tile
     that fits in shared memory, and a launch grid of at most 65535 row
     tiles and 65535 bands."""
@@ -236,6 +264,23 @@ def supported_slab(shape, gens: int, *, batch: int = 1,
     except ValueError:
         return False
     return -(-He // th) <= _MAX_GRID_Y
+
+
+def supported_lane(shape, gens: int, *, batch: int = 1,
+                   tile: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether the B2 lane form takes ``batch`` whole ``(H, Wp)`` grids at
+    ``gens`` generations per launch: 1..32 generations, no more than ``H``
+    (the depth of the row exchange its plain version makes), a tile that
+    fits in shared memory, and a launch grid of at most 65535 row tiles
+    and 65535 grids."""
+    H, Wp = shape
+    if H < 1 or Wp < 1 or not 1 <= batch <= _MAX_GRID_Z or gens > H:
+        return False
+    try:
+        _, th, _ = _resolve_lane(gens, H, Wp, tile)
+    except ValueError:
+        return False
+    return -(-H // th) <= _MAX_GRID_Y
 
 
 def _resolve_generations_slab(planes: int, gens: int, He: int, Wp: int,
@@ -434,8 +479,10 @@ def _launch_reference(p: torch.Tensor, gens: int, rule: Rule,
     """One B1 launch in plain torch: every tile at once as a batch."""
     H, Wp = p.shape
     slab, masks = _tiles(p, gens, 1, th, tw, topology)
+    encoding = _generations_rule_encoding(rule)
     for k in range(gens):
-        slab = step_packed_slab(_rezero(slab, masks, k), rule, Topology.DEAD)
+        slab = step_packed_slab(_rezero(slab, masks, k), rule, Topology.DEAD,
+                                encoding)
     return _untile(slab, 1, tw, H, Wp)
 
 
@@ -551,9 +598,10 @@ def _slab_launch_reference(ext: torch.Tensor, gens: int, rule: Rule,
     slab, (_, col_in) = _tiles(ext, gens, 1, th, tw, topology,
                                rows=Topology.DEAD)
     live_rows = _live_rows(He, th, gens, edge_code, ext.device)
+    encoding = _generations_rule_encoding(rule)
     for k in range(gens):
         slab = step_packed_slab(_rezero(slab, (live_rows, col_in), k), rule,
-                                Topology.DEAD)
+                                Topology.DEAD, encoding)
     return _untile(slab, 1, tw, He, Wp)
 
 
@@ -638,6 +686,66 @@ def slab_step_reference(
                                   th, tw)
 
 
+def _lane_mask(mask, grids: torch.Tensor) -> Optional[torch.Tensor]:
+    """The ``(B,)`` nonzero-means-live mask of a lane (numpy, a sequence or
+    a tensor) as the lane form takes it: a contiguous int32 tensor on the
+    grids' device (``mask`` itself if it is one), or None for all live."""
+    if mask is None:
+        return None
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.from_numpy(np.asarray(mask))
+    if mask.shape != grids.shape[:1]:
+        raise ValueError(
+            f"mask of shape {tuple(mask.shape)} for a batch of {grids.shape[0]}")
+    if (mask.dtype == torch.int32 and mask.device == grids.device
+            and mask.is_contiguous()):
+        return mask
+    return (mask != 0).to(device=grids.device, dtype=torch.int32)
+
+
+def _check_lane(grids: torch.Tensor, gens: Optional[int]) -> int:
+    """A ``(B, H, W/32)`` int32 lane and a depth (default: the bands') no
+    deeper than its grids; returns the depth."""
+    _check(grids, dims=3)
+    g = _depth(gens, DEFAULT_BAND_GENS_PER_CALL)
+    if g > grids.shape[1]:
+        raise ValueError(
+            f"gens_per_exchange={g} exceeds the band height {grids.shape[1]}")
+    return g
+
+
+def _lane_launch_reference(grids: torch.Tensor, gens: int, rule: Rule,
+                           topology: Topology,
+                           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One B2 lane-form launch in plain torch: the row exchange (each grid
+    a mesh of one band), the slab form's plain version (edge code 3 under
+    DEAD), the crop of ``gens`` rows per side and the mask's select."""
+    ext = exchange_rows_stack(grids, topology, gens)
+    _, th, tw = _resolve_slab(gens, ext.shape[1], ext.shape[2], None)
+    out = _slab_launch_reference(ext, gens, rule, topology,
+                                 3 if topology is Topology.DEAD else 0,
+                                 th, tw)[:, gens:-gens]
+    if mask is not None:
+        out = torch.where(mask[:, None, None] != 0, out, grids)
+    return out.contiguous()
+
+
+def lane_step_reference(
+    grids: torch.Tensor,
+    gens: int,
+    *,
+    rule: Rule,
+    topology: Topology = Topology.TORUS,
+    mask=None,
+) -> torch.Tensor:
+    """One B2 lane-form launch, ``gens`` generations of the ``(B, H, W/32)``
+    batch of whole grids, in plain torch on any device (see
+    :func:`multi_step_lane_kernel`)."""
+    g = _check_lane(grids, gens)
+    return _lane_launch_reference(grids, g, rule, topology,
+                                  _lane_mask(mask, grids))
+
+
 def slab_step_generations_reference(
     ext: torch.Tensor,
     gens: int,
@@ -716,10 +824,13 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # The launch functions of each csrc/<name>.cu and their C argument types.
 _SIGNATURES = {
     "life_packed": {
-        "life_packed_launch": [_P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _P]},
+        "life_packed_launch": [_P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _P],
+        "life_packed_rule_path": [_U, _U]},
     "life_slab": {
         "life_slab_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I,
-                             _P, _P]},
+                             _P, _P],
+        "life_slab_lane_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I,
+                                  _P, _P]},
     "life_generations": {
         "life_generations_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
                                     _U, _I, _P],
@@ -786,16 +897,19 @@ def _ltl_rule_encoding(rule: LtLRule) -> Tuple[List[int], List[int], List[int]]:
             [int(b in keep) for b in bounds])
 
 
-def _generations_rule_encoding(rule: GenRule) -> Tuple[Tuple[int, int, int], ...]:
-    """The rule as the B3 kernel looks it up. A rule whose born and
-    survive sets together name 1..``MAX_GENERATIONS_COUNTS`` counts, all
-    in 1..7, takes the equality path: each count ascending, with whether
-    it is a birth and a survival count (1 or 0); the kernel tests a
-    count's equality plane on the three low count bit-planes alone, which
-    count 8 (low bits 000) never matches. Any other rule is ``()``: the
-    9-entry table. ``csrc/life_generations.cu``'s ``rule_path`` makes the
-    same choice; ``packed_generations.encoded_rule_planes`` is the plain
-    twin of the lookup."""
+def _generations_rule_encoding(rule) -> Tuple[Tuple[int, int, int], ...]:
+    """The rule as the 3x3 kernels look it up (``csrc/life_rule.cuh``): a
+    Generations rule for B3, a B/S rule (C = 2) for B1 and B2. A rule whose
+    born and survive sets together name 1..``MAX_GENERATIONS_COUNTS``
+    counts, all in 1..7, takes the equality path: each count ascending,
+    with whether it is a birth and a survival count (1 or 0); the kernel
+    tests a count's equality plane on the three low count bit-planes
+    alone, which count 8 (low bits 000) never matches. Any other rule is
+    ``()``: the 9-entry table. ``life_rule.cuh``'s ``rule_path`` makes the
+    same choice (the C functions ``life_generations_rule_path`` and
+    ``life_packed_rule_path``); ``packed_generations.encoded_rule_planes``
+    and ``packed.encoded_next_plane`` are the plain twins of the
+    lookup."""
     counts = sorted(rule.born | rule.survive)
     if (not counts or len(counts) > MAX_GENERATIONS_COUNTS or counts[0] == 0
             or counts[-1] == 8):
@@ -824,6 +938,17 @@ def _launch(lib, src: torch.Tensor, dst: torch.Tensor, gens: int, rule: Rule,
         _stream(src))
     _raise_on(lib, "life_packed", err)
     KERNEL_LAUNCHES += 1
+
+
+def _launch_lane(lib, src, dst, gens, rule: Rule, topology, mask, th, tw):
+    global SLAB_LAUNCHES
+    B, H, Wp = src.shape
+    err = lib.life_slab_lane_launch(
+        src.data_ptr(), dst.data_ptr(), B, H, Wp, gens, th, tw,
+        rule.birth_mask, rule.survive_mask, int(topology is Topology.DEAD),
+        None if mask is None else mask.data_ptr(), _stream(src))
+    _raise_on(lib, "life_slab", err)
+    SLAB_LAUNCHES += 1
 
 
 def _launch_generations(lib, src, dst, gens, rule: GenRule, topology, th, tw):
@@ -1055,6 +1180,47 @@ def slab_step_kernel(
     lib = load_slab_kernel()
     return _run_once(ext, lambda src, dst: _launch_slab(
         lib, src, dst, g, rule, topology, edge_code, th, tw))
+
+
+def multi_step_lane_kernel(
+    grids: torch.Tensor,
+    n: int,
+    mask=None,
+    *,
+    rule: Rule,
+    topology: Topology = Topology.TORUS,
+    gens_per_call: Optional[int] = None,
+    tile: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Advance a ``(B, H, W/32)`` int32 batch of whole grids (a serving
+    lane) by ``n`` generations of a B/S rule, ``topology`` closing both
+    axes of every grid, through B2's lane form: ``n // g`` launches of
+    ``g`` generations, then one of ``n % g``, the counterpart of
+    ``make_multi_step_pallas_batched``'s chunks (row exchange, slab step,
+    crop, select). ``mask`` (optional, ``(B,)``, nonzero = live) freezes
+    the grids whose entry is 0: they come out bit-identical. ``g`` is at
+    most ``H``, the depth of the exchange. A launch reads the rows beyond
+    each grid from the grid itself (no extended copy).
+
+    On a CUDA tensor: the launches ping-pong between two new buffers on
+    the current stream (``grids`` itself is left as it was). On a CPU
+    tensor: each launch by the plain version, :func:`lane_step_reference`.
+    Any other device raises."""
+    g = _check_lane(grids, gens_per_call)
+    mask = _lane_mask(mask, grids)
+    plan = _launch_plan(n, g)
+    if grids.device.type == "cpu":
+        for gens in plan:
+            grids = _lane_launch_reference(grids, gens, rule, topology, mask)
+        return grids
+    B, H, Wp = grids.shape
+    _, th, tw = _resolve_lane(g, H, Wp, tile)
+    _on_card(grids, supported_lane((H, Wp), g, batch=B, tile=(th, tw)),
+             f"lane {tuple(grids.shape)} exceeds the lane kernel's launch "
+             f"grid at tile {(th, tw)}")
+    lib = load_slab_kernel() if plan else None
+    return _run(grids, plan, lambda src, dst, gens: _launch_lane(
+        lib, src, dst, gens, rule, topology, mask, th, tw))
 
 
 def slab_step_generations_kernel(

@@ -80,6 +80,28 @@ def apply_rule_planes(alive: torch.Tensor, bits: Sequence[torch.Tensor],
     return (alive & keep) | (~alive & born)
 
 
+def encoded_next_plane(alive: torch.Tensor, bits: Sequence[torch.Tensor],
+                       rule: Rule, encoding) -> torch.Tensor:
+    """The next alive plane as kernels B1 and B2 look the rule up, from its
+    encoding (``cuda_stencil._generations_rule_encoding``, which serves B/S
+    rules too): on the equality path each encoded count's plane, tested on
+    the three low count bit-planes alone (its counts lie in 1..7, and
+    count 8's low bits are 000), is kept where the cell's own entry for
+    that count is set -- the survival entry where it is alive, the birth
+    entry where it is not; on the table path (``()``)
+    :func:`apply_rule_planes`. The result is the same."""
+    if not encoding:
+        return apply_rule_planes(alive, bits, rule)
+    ones = ~torch.zeros_like(alive)
+    zero = torch.zeros_like(alive)
+    out = zero
+    for n, is_born, is_kept in encoding:
+        entry = (alive & (ones if is_kept else zero)) | (
+            ~alive & (ones if is_born else zero))
+        out = out | (_count_eq(bits[:3], n) & entry)
+    return out
+
+
 def _shift_west(p: torch.Tensor, left_word: torch.Tensor) -> torch.Tensor:
     """Plane of west neighbors: bit i <- bit i-1, borrowing bit 31 of the
     word to the left (``left_word``) at each word boundary."""
@@ -189,19 +211,24 @@ def multi_step_packed(
     return p
 
 
-def step_packed_slab(slab: torch.Tensor, rule: Rule, topology: Topology) -> torch.Tensor:
+def step_packed_slab(slab: torch.Tensor, rule: Rule, topology: Topology,
+                     encoding=None) -> torch.Tensor:
     """One generation for the interior rows of a (..., L, Wp) slab ->
     (..., L-2, Wp).
 
     Rows shrink (vertical halos consumed); columns use ``topology`` across
     the slab's own width. Rows are the second-to-last axis, so a batch of
-    slabs (the CUDA kernel's tiles, in its plain version) steps at once."""
+    slabs (the CUDA kernel's tiles, in its plain version) steps at once.
+    ``encoding``, the CUDA kernels' form of the rule, makes the rule lookup
+    theirs (:func:`encoded_next_plane`); the result is the same."""
     h = slab.shape[-2] - 2
     w, c, e = horizontal_planes(slab, topology)
     bits = _row_sum_bits(
         w, c, e,
         lambda plane: (plane[..., 0:h, :], plane[..., 2:h + 2, :]),
         lambda plane: plane[..., 1:h + 1, :])
+    if encoding is not None:
+        return encoded_next_plane(slab[..., 1:h + 1, :], bits, rule, encoding)
     return apply_rule_planes(slab[..., 1:h + 1, :], bits, rule)
 
 

@@ -12,10 +12,12 @@ the slots that owe no generations.
   exchange and :func:`..ops.packed.step_packed_ext` per generation.
 - :func:`multi_step_kernel_batched` / :func:`make_multi_step_kernel_batched`
   — the counterpart of ``make_multi_step_pallas_batched``: per chunk of
-  ``g`` generations, a depth-``g`` row exchange, ONE launch of the B2
-  kernel over the whole batch (:func:`..ops.cuda_stencil.slab_step_kernel`;
-  its plain version for a CPU tensor), a crop of ``g`` rows per side and
-  the mask's select. The paged runner waits for ROADMAP A10.
+  ``g`` generations, ONE launch of B2's lane form over the whole batch
+  (:func:`..ops.cuda_stencil.multi_step_lane_kernel`), which reads the rows
+  beyond each universe from the universe itself and copies the frozen
+  ones; for a CPU tensor its plain version, the JAX runner's chunk: a
+  depth-``g`` row exchange, the slab step, a crop of ``g`` rows per side
+  and the mask's select. The paged runner waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..models.rules import Rule
 from ..ops import cuda_stencil
 from ..ops.packed import step_packed_ext
 from ..ops.stencil import Topology
-from .halo import band_edge_code, exchange_halo_stack, exchange_rows_stack
+from .halo import exchange_halo_stack
 
 
 def _live(mask, grids: torch.Tensor) -> torch.Tensor:
@@ -71,37 +73,31 @@ def multi_step_kernel_batched(
     *,
     rule: Rule,
     topology: Topology = Topology.TORUS,
-    gens_per_exchange: int = cuda_stencil.DEFAULT_GENS_PER_CALL,
+    gens_per_exchange: int = cuda_stencil.DEFAULT_BAND_GENS_PER_CALL,
 ) -> torch.Tensor:
     """Advance a ``(B, H, W/32)`` packed batch exactly ``n`` generations
-    through the B2 kernel: ``n // g`` chunks of ``g = gens_per_exchange``
-    generations, then one of ``n % g`` (its exchange and crop as deep as
-    the chunk). Under DEAD each band is the whole grid, so the edge code is
-    3 and the kernel keeps the rows beyond the grid dead; under TORUS it is
-    0 and the exchanged rows evolve freely. ``mask`` (optional, ``(B,)``)
-    freezes the universes whose entry is 0. Returns a new contiguous
+    through B2's lane form: ``n // g`` launches of ``g =
+    gens_per_exchange`` generations (at most ``H``), then one of ``n %
+    g``. ``topology`` closes both axes of every universe: under
+    TORUS the rows beyond a universe are its own rows modulo ``H``, under
+    DEAD they are dead (the slab form's edge code 3). ``mask`` (optional,
+    ``(B,)``) freezes the universes whose entry is 0. On a CUDA tensor
+    the launches ping-pong between two new buffers
+    (:func:`..ops.cuda_stencil.multi_step_lane_kernel`); on a CPU tensor
+    each chunk is the lane form's plain version, the JAX runner's
+    exchange, slab step, crop and select. Returns a new contiguous
     tensor."""
     if grids.dim() != 3:
         raise ValueError(f"expected a (B, H, W/32) batch, got {tuple(grids.shape)}")
-    g = cuda_stencil._depth(gens_per_exchange, cuda_stencil.DEFAULT_GENS_PER_CALL)
-    if g > grids.shape[1]:
-        raise ValueError(
-            f"gens_per_exchange={g} exceeds the band height {grids.shape[1]}")
-    live = None if mask is None else _live(mask, grids)
-    edge = band_edge_code() if topology is Topology.DEAD else 0
-    for depth in cuda_stencil._launch_plan(n, g):
-        ext = exchange_rows_stack(grids, topology, depth)
-        out = cuda_stencil.slab_step_kernel(
-            ext, depth, rule=rule, topology=topology, edge_code=edge,
-        )[:, depth:-depth]
-        grids = out if live is None else torch.where(live, out, grids)
-    return grids.contiguous()
+    return cuda_stencil.multi_step_lane_kernel(
+        grids.contiguous(), n, mask, rule=rule, topology=topology,
+        gens_per_call=gens_per_exchange).contiguous()
 
 
 def make_multi_step_kernel_batched(
     rule: Rule,
     topology: Topology = Topology.TORUS,
-    gens_per_exchange: int = cuda_stencil.DEFAULT_GENS_PER_CALL,
+    gens_per_exchange: int = cuda_stencil.DEFAULT_BAND_GENS_PER_CALL,
     masked: bool = False,
 ) -> Callable:
     """The counterpart of ``make_multi_step_pallas_batched``:

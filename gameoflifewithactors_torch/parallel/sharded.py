@@ -88,7 +88,7 @@ def make_multi_step_kernel(
     mesh: Mesh,
     rule: Rule,
     topology: Topology = Topology.TORUS,
-    gens_per_exchange: int = cuda_stencil.DEFAULT_GENS_PER_CALL,
+    gens_per_exchange: int = cuda_stencil.DEFAULT_BAND_GENS_PER_CALL,
 ) -> Runner:
     """``(grid, n) -> grid`` on full-width row bands of packed B/S words
     through kernel B2 (:func:`..ops.cuda_stencil.slab_step_kernel`): the
@@ -97,7 +97,7 @@ def make_multi_step_kernel(
     word per tile side holds 32 generations) and at most the band
     height."""
     g = cuda_stencil._depth(gens_per_exchange,
-                            cuda_stencil.DEFAULT_GENS_PER_CALL)
+                            cuda_stencil.DEFAULT_BAND_GENS_PER_CALL)
     return _band_runner(
         mesh, topology, g, 1,
         lambda ext, gens, code: cuda_stencil.slab_step_kernel(

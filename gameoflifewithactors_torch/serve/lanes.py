@@ -55,16 +55,16 @@ LANE_LADDER = (1, 8, 64, 256)
 LANE_BACKENDS = ("packed", "cuda")
 # generations per B2 launch on a "cuda" lane (the JAX lane's
 # gens_per_exchange default)
-LANE_GENS_PER_CALL = cuda_stencil.DEFAULT_GENS_PER_CALL
+LANE_GENS_PER_CALL = cuda_stencil.DEFAULT_BAND_GENS_PER_CALL
 
 
 def kernel_takes(height: int, wq: int) -> bool:
     """Whether a ``"cuda"`` lane serves ``height`` × ``wq``-word grids:
-    each grid is one band with a depth-``g`` exchange, so ``height >= g``,
-    and the extended band must fit B2's launch limits."""
-    g = LANE_GENS_PER_CALL
-    return height >= g and cuda_stencil.supported_slab(
-        (height + 2 * g, wq), g, batch=LANE_LADDER[-1])
+    each grid steps ``g`` generations per launch of B2's lane form, which
+    reads the rows beyond it from the grid itself, so ``height >= g``, and
+    a full top-rung lane must fit its launch limits."""
+    return cuda_stencil.supported_lane((height, wq), LANE_GENS_PER_CALL,
+                                       batch=LANE_LADDER[-1])
 
 
 class SpecFamily:

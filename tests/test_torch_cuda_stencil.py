@@ -141,7 +141,8 @@ def test_supported_takes_every_word_divisible_shape():
     assert cuda_stencil.supported((1, 1))
     assert cuda_stencil.supported((1000, 33))
     assert not cuda_stencil.supported((0, 4))
-    assert not cuda_stencil.supported((64 * 70000, 1))
+    # more row tiles of the default height than the launch grid holds
+    assert not cuda_stencil.supported((cuda_stencil.DEFAULT_TILE[0] * 70000, 1))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -61,7 +61,8 @@ def test_engine_main_path_launches_the_kernel():
     assert engine.backend == "cuda" and engine.device.type == "cuda"
     before = cuda_stencil.KERNEL_LAUNCHES
     engine.step(21)
-    assert cuda_stencil.KERNEL_LAUNCHES - before == 3   # 8 + 8 + 5
+    g = cuda_stencil.DEFAULT_GENS_PER_CALL
+    assert cuda_stencil.KERNEL_LAUNCHES - before == -(-21 // g)   # 16 + 5
     plain = multi_step_packed(bitpack.pack(torch.from_numpy(grid)), 21, rule=CONWAY)
     assert torch.equal(engine.state.cpu(), plain)
     assert engine.population() == bitpack.population(plain)

@@ -119,9 +119,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     assert cuda_stencil.supported_slab((1040, 32), 8, batch=256)
     assert not cuda_stencil.supported_slab((1040, 32), 8, batch=70000)
     assert not cuda_stencil.supported_slab((1040, 32), 40)
-    assert not cuda_stencil.supported_slab((64 * 65536, 64), 8)
-    # the tile keeps about 4096 words, narrows to the band and splits its
-    # rows evenly
-    assert cuda_stencil._resolve_slab(8, 1040, 32, None) == (8, 130, 32)
-    assert cuda_stencil._resolve_slab(8, 16400, 512, None) == (8, 65, 64)
+    rows = cuda_stencil.DEFAULT_TILE[0]
+    assert not cuda_stencil.supported_slab((rows * 65536, 64), 8)
+    # B1's default tile, narrowed to the band, its rows split evenly
+    assert cuda_stencil._resolve_slab(8, 1040, 32, None) == (8, 208, 32)
+    assert cuda_stencil._resolve_slab(8, 16400, 512, None) == (8, 193, 58)
     assert cuda_stencil._resolve_slab(3, 24, 2, None) == (3, 24, 2)
