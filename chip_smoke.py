@@ -35,7 +35,17 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    and one 16384² session on mixed cursors through ``SessionService``,
    every grid held against its own dedicated ``Engine`` run, compaction
    after closes, and ``python -m gameoflifewithactors_torch serve`` over
-   HTTP in a subprocess.
+   HTTP in a subprocess. Checkpoints: each 16384² main path runs 150
+   generations, saves, reloads onto the card and runs 150 more, launching
+   its kernel in both halves, equal to the uninterrupted run; the B3/S23
+   (4, 1) mesh path writes sharded v2 checkpoints at two generations, a
+   flipped byte makes ``load_latest_verified`` fall back to the older one,
+   which resumes onto the mesh. The elementary (1D) family (plain torch,
+   no TPU kernel serves it): a 16384 x 16384-cell ensemble, W110 TORUS and
+   W30 DEAD, 2000 generations against a dense truth-table reference, the
+   W110 run on a (1, 4) mesh, and the CLI's 1D route with ``--ppm``. The
+   CLI's ``--checkpoint``/``--resume`` round trip at 4096² with
+   ``--save-rle`` and ``--ppm``, with and without ``--mesh bands``.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -55,8 +65,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -634,6 +646,11 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
     return worst
 
 
+MAIN_PATHS = [  # (kernel, rule, family's default depth attribute)
+    ("life_packed", "B3/S23", "DEFAULT_GENS_PER_CALL"),
+    ("life_generations", "brain", "DEFAULT_GENERATIONS_GENS_PER_CALL"),
+    ("life_ltl", "bosco", "DEFAULT_LTL_GENS_PER_CALL"),
+]
 MESH_PATHS = [  # (kernel, rule, family's default depth attribute)
     ("life_slab", "B3/S23", "DEFAULT_BAND_GENS_PER_CALL"),
     ("life_generations_slab", "brain", "DEFAULT_GENERATIONS_GENS_PER_CALL"),
@@ -732,6 +749,311 @@ def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
               f"launches, population {sharded.population()} == the "
               "single-device kernel run")
     return out
+
+
+ELEMENTARY_SHAPE = (16384, 512)   # 16384 universes of 16384 cells, 2^28
+ELEMENTARY_GENERATIONS = 2000
+ELEMENTARY_CLI = ("W90", 4096, 2047)   # rule, row width, steps
+
+
+def dense_elementary(cells, n: int, rule, topology):
+    """The plain reference of the 1D family on the card: ``n`` generations
+    of ``(..., W)`` uint8 cells, each the rule's 8-entry truth table (from
+    ``pattern_bit``) looked up at (left, center, right) of rolled
+    neighbours, zeros past the ends under DEAD."""
+    import torch
+
+    from gameoflifewithactors_torch.ops.stencil import Topology
+
+    table = torch.tensor([rule.pattern_bit((k >> 2) & 1, (k >> 1) & 1, k & 1)
+                          for k in range(8)], dtype=torch.uint8,
+                         device=cells.device)
+    for _ in range(n):
+        left = torch.roll(cells, 1, dims=-1)
+        right = torch.roll(cells, -1, dims=-1)
+        if topology is Topology.DEAD:
+            left[..., 0] = 0
+            right[..., -1] = 0
+        cells = table[((left << 2) | (cells << 1) | right).long()]
+    return cells
+
+
+def elementary_phase(cs, card: str, dev, repo: str, cli_dir: str) -> dict:
+    """Phase 3 for the 1D family (plain torch; no TPU kernel serves it): a
+    16384-universe ensemble of 16384 cells through multi_step_elementary,
+    W110 under TORUS and W30 under DEAD, each held bit for bit against the
+    dense truth-table reference; the W110 run again through the sharded
+    runner on a (1, 4) mesh of ``dev`` at g = 8; the CLI's 1D route with
+    ``--ppm`` against ``save_ppm`` of the library's spacetime diagram.
+    Launches no kernel of B1-B4. Returns the rates."""
+    import torch
+    from gameoflifewithactors_torch.models import seeds
+    from gameoflifewithactors_torch.models.elementary import parse_elementary
+    from gameoflifewithactors_torch.ops import bitpack
+    from gameoflifewithactors_torch.ops.elementary import (
+        evolve_spacetime, multi_step_elementary)
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel.mesh import (
+        device_put_sharded_grid, make_mesh)
+    from gameoflifewithactors_torch.parallel.sharded import \
+        make_multi_step_elementary_sharded
+    from gameoflifewithactors_torch.utils.render import save_ppm
+
+    rule_name, width, steps = ELEMENTARY_CLI
+    ppm = os.path.join(cli_dir, "elementary_cli.ppm")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gameoflifewithactors_torch", "--rule",
+         rule_name, "--grid", f"1x{width}", "--steps", str(steps), "--ppm",
+         ppm], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    h, wp = ELEMENTARY_SHAPE
+    n = ELEMENTARY_GENERATIONS
+    cells = h * wp * 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    start = bitpack.pack(seeds.bernoulli(gen, (h, wp * 32), 0.5))
+    out = {}
+    reset_launches(cs)
+    for name, topology in [("W110", Topology.TORUS), ("W30", Topology.DEAD)]:
+        rule = parse_elementary(name)
+        multi_step_elementary(start, 8, rule=rule, topology=topology)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = multi_step_elementary(start, n, rule=rule, topology=topology)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = bitpack.pack(dense_elementary(bitpack.unpack(start), n, rule,
+                                             topology))
+        check(torch.equal(got, want),
+              f"elementary {name} {topology.value} ensemble != the dense "
+              "truth-table reference")
+        out[name] = cells * n / wall
+        print(f"elementary ensemble: {h} universes x {wp * 32} cells "
+              f"({h}x{wp} int32 words) {name} {topology.value}, {n} "
+              f"generations of multi_step_elementary in {wall:.4f} s host "
+              f"clock incl. sync, {out[name]:.4e} cell-updates/s; == the "
+              f"dense uint8 truth-table reference bit for bit  [{card}]")
+        if name == "W110":
+            single = got
+        del got, want
+    mesh = make_mesh((1, 4), [dev] * 4)
+    g = 8
+    run = make_multi_step_elementary_sharded(mesh, parse_elementary("W110"),
+                                             Topology.TORUS, g)
+    placed = device_put_sharded_grid(start, mesh)
+    run(placed, 1)    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = run(placed, n // g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.equal(done.gather(), single),
+          "elementary W110 on the (1, 4) mesh != the single-device run")
+    out["sharded"] = cells * n / wall
+    print(f"elementary sharded: W110 TORUS on a (1, 4) mesh of {dev} "
+          f"(width over the column axis, one halo word per side per chunk), "
+          f"g={g}, {n // g} chunks in {wall:.4f} s host clock incl. sync, "
+          f"{out['sharded']:.4e} cell-updates/s (single device "
+          f"{out['W110']:.4e}, ratio {out['sharded'] / out['W110']:.4f}); "
+          f"== the single-device run  [{card}]")
+    counts = launches(cs)
+    check(all(v == 0 for v in counts.values()),
+          f"the elementary paths launched a kernel of B1-B4: {counts}")
+    del single, done, placed, start
+
+    _, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"CLI {proc.args} exited {proc.returncode}: {err}")
+    row = np.zeros(width, np.uint8)
+    row[width // 2] = 1
+    st = evolve_spacetime(bitpack.pack(torch.from_numpy(row[None]).to(dev)),
+                          steps, rule=parse_elementary(rule_name))
+    want_ppm = os.path.join(cli_dir, "elementary_library.ppm")
+    save_ppm(bitpack.unpack(st[:, 0, :]).cpu().numpy(), want_ppm)
+    with open(ppm, "rb") as a, open(want_ppm, "rb") as b:
+        check(a.read() == b.read(),
+              f"CLI --rule {rule_name} --ppm differs from save_ppm of "
+              "evolve_spacetime")
+    print(f"CLI --rule {rule_name} --grid 1x{width} --steps {steps} --ppm on "
+          f"the card: {os.path.getsize(ppm)} bytes == save_ppm of the "
+          "library's evolve_spacetime")
+    os.unlink(ppm)
+    os.unlink(want_ppm)
+    # the dense reference's 2 GiB index temporaries: hand them back, so the
+    # timing phase's allocations find the pool as the other phases leave it
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_phase(cs, card: str, single: dict, work: str) -> dict:
+    """Phase 3 for checkpoints: each 16384^2 main path (``single[spec]`` =
+    (start, state after MAIN_GENERATIONS, population)) runs half its
+    generations from the start state, saves, loads onto the card and runs
+    the other half, launching its kernel in both halves; the result equals
+    the uninterrupted run. Returns seconds and MiB per path."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.utils import checkpoint as ckpt
+
+    half = MAIN_GENERATIONS // 2
+    out = {}
+    for kernel, spec, depth_attr in MAIN_PATHS:
+        g = getattr(cs, depth_attr)
+        start, after, _ = single[spec]
+        engine = Engine.from_packed(start, spec, device="cuda")
+        reset_launches(cs)
+        engine.step(half)
+        engine.block_until_ready()
+        first = launches(cs)[kernel]
+        path = os.path.join(work, f"resume-{kernel}.npz")
+        t0 = time.perf_counter()
+        ckpt.save(engine, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.load_engine(path)
+        back.block_until_ready()
+        load_s = time.perf_counter() - t0
+        check(back.backend == "cuda" and back.generation == half
+              and back.device.type == "cuda",
+              f"{spec} resumed as {back.backend} on {back.device} at "
+              f"generation {back.generation}")
+        reset_launches(cs)
+        back.step(MAIN_GENERATIONS - half)
+        second = launches(cs)[kernel]
+        expected = math.ceil(half / g)
+        check(first == expected and second == expected,
+              f"{spec} resume launched {kernel} {first} + {second} times, "
+              f"expected {expected} each")
+        check(torch.equal(back.state, after),
+              f"{spec} resumed run differs from the uninterrupted run")
+        mib = os.path.getsize(path) / 2 ** 20
+        out[spec] = {"save_s": save_s, "load_s": load_s, "mib": mib}
+        layout = ckpt.load_grid(path)[1]["layout"]
+        print(f"resume: {MAIN_SHAPE[0]}^2 {spec} {half} generations, save "
+              f"({layout}) {save_s:.4f} s, {mib:.2f} MiB, load_engine onto "
+              f"the card {load_s:.4f} s, {MAIN_GENERATIONS - half} more; "
+              f"{first} + {second} {kernel} launches; == the uninterrupted "
+              f"{MAIN_GENERATIONS}-generation run  [{card}]")
+        os.unlink(path)
+        del engine, back
+    return out
+
+
+def sharded_v2_phase(cs, card: str, dev, single: dict, work: str) -> dict:
+    """Phase 3 for the sharded checkpoint: the B3/S23 main path on the
+    (4, 1) mesh writes its shards at two generations and commits each; a
+    byte flipped in the newer generation's shard makes
+    ``load_latest_verified`` fall back to the older one, which resumes onto
+    the mesh and runs on to MAIN_GENERATIONS, equal to the single-device
+    run."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel.mesh import make_mesh
+    from gameoflifewithactors_torch.parallel.multihost import local_shards
+    from gameoflifewithactors_torch.utils import checkpoint as ckpt
+
+    spec = "B3/S23"
+    start, after, _ = single[spec]
+    mesh = make_mesh((MESH_BANDS, 1), [dev] * MESH_BANDS)
+    engine = Engine.from_packed(start, spec, mesh=mesh)
+    check(engine.backend == "cuda", f"auto picked {engine.backend}")
+    root = os.path.join(work, "sharded")
+    written = []
+    for gens in (100, 100):
+        engine.step(gens)
+        gen_dir = ckpt.generation_dir(root, engine.generation)
+        t0 = time.perf_counter()
+        shards = local_shards(engine.sharded_state)
+        ckpt.write_shards(gen_dir, 0, shards,
+                          global_shape=tuple(engine.state.shape),
+                          dtype=np.uint32)
+        ckpt.commit_manifest(gen_dir, num_processes=1, meta={
+            "rule": engine.rule.notation, "topology": engine.topology.value,
+            "generation": engine.generation, "shape": list(engine.shape),
+            "layout": "packed32"})
+        written.append((gen_dir, time.perf_counter() - t0, len(shards)))
+    newer = written[-1][0]
+    npz = os.path.join(newer, "shard-p0000.npz")
+    with open(npz, "r+b") as f:
+        f.seek(os.path.getsize(npz) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    t0 = time.perf_counter()
+    arr, meta, gen_dir, skipped = ckpt.load_latest_verified(root)
+    load_s = time.perf_counter() - t0
+    check(str(gen_dir) == str(written[0][0])
+          and [str(d) for d, _ in skipped] == [str(newer)],
+          f"load_latest_verified returned {gen_dir}, skipped {skipped}")
+    back = Engine.from_packed(arr, meta["rule"],
+                              topology=Topology(meta["topology"]), mesh=mesh)
+    back.generation = meta["generation"]
+    reset_launches(cs)
+    back.step(MAIN_GENERATIONS - back.generation)
+    slab = launches(cs)["life_slab"]
+    check(slab > 0 and launches(cs)["life_packed"] == 0,
+          f"the resumed mesh run launched {launches(cs)}")
+    check(back.generation == MAIN_GENERATIONS
+          and torch.equal(back.state, after),
+          "the resumed mesh run differs from the single-device run")
+    mib = sum(os.path.getsize(os.path.join(written[0][0], f))
+              for f in os.listdir(written[0][0])) / 2 ** 20
+    print(f"sharded v2: {spec} on the ({MESH_BANDS}, 1) mesh, shards "
+          f"({written[0][2]} per generation) written and committed at "
+          f"generations 100 and 200 in {written[0][1]:.4f} and "
+          f"{written[1][1]:.4f} s, {mib:.2f} MiB per generation; a byte "
+          f"flipped in generation 200's shard: load_latest_verified fell back "
+          f"to generation {meta['generation']} in {load_s:.4f} s (skipped: "
+          f"{skipped[0][1][:80]}...), resumed onto the mesh, {slab} life_slab "
+          f"launches to generation {MAIN_GENERATIONS}; == the single-device "
+          f"run  [{card}]")
+    shutil.rmtree(root)
+    return {"write_s": written[0][1], "load_s": load_s, "mib": mib}
+
+
+def cli_round_trip(repo: str, work: str) -> None:
+    """The CLI's checkpoint round trip at 4096^2 on the card: 200
+    generations to ``--checkpoint``, ``--resume`` for 100 more with
+    ``--save-rle`` and ``--ppm``, against a straight 300-generation run;
+    both files byte-equal, with and without ``--mesh bands``."""
+    base = ["--grid", "4096x4096", "--seed", "random", "--rng-seed", "3"]
+
+    def run(*args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "gameoflifewithactors_torch", *args],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def wait(proc):
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"CLI {proc.args} exited {proc.returncode}: {err}")
+
+    for mesh in ([], ["--mesh", "bands"]):
+        tag = "mesh" if mesh else "single"
+        f = {k: os.path.join(work, f"cli-{tag}-{k}") for k in
+             ("c.npz", "a.rle", "a.ppm", "b.rle", "b.ppm")}
+        first = run(*base, *mesh, "--steps", "200", "--checkpoint", f["c.npz"])
+        straight = run(*base, *mesh, "--steps", "300", "--save-rle", f["b.rle"],
+                       "--ppm", f["b.ppm"])
+        wait(first)
+        resumed = run("--resume", f["c.npz"], *mesh, "--steps", "100",
+                      "--save-rle", f["a.rle"], "--ppm", f["a.ppm"])
+        wait(straight)
+        wait(resumed)
+        for kind in ("rle", "ppm"):
+            with open(f[f"a.{kind}"], "rb") as a, open(f[f"b.{kind}"], "rb") as b:
+                check(a.read() == b.read(),
+                      f"CLI {tag}: the resumed run's --{kind} file differs "
+                      "from the straight run's")
+        print(f"CLI round trip 4096^2{' --mesh bands' if mesh else ''}: "
+              f"--steps 200 --checkpoint, then --resume --steps 100: "
+              f"--save-rle ({os.path.getsize(f['a.rle'])} bytes) and --ppm "
+              f"({os.path.getsize(f['a.ppm'])} bytes) == the straight "
+              "300-generation run's")
+        for path in f.values():
+            os.unlink(path)
 
 
 def serve_phase(cs, card: str) -> dict:
@@ -1237,8 +1559,12 @@ def main() -> int:
     mesh = mesh_phase(cs, card, dev, single, main_rates)
     for kernel in ("life_generations_slab", "life_ltl_slab"):
         main_launches[kernel] = mesh[kernel]["launches"]
-    del single
     stamp("the mesh main paths")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    resumed = resume_phase(cs, card, single, work)
+    sharded_v2 = sharded_v2_phase(cs, card, dev, single, work)
+    del single
+    stamp("checkpoint and resume")
 
     # the entry points in subprocesses, all started at once (each takes
     # seconds to reach the card) while nothing is timed: the CLI for each
@@ -1285,6 +1611,19 @@ def main() -> int:
         print(f"CLI --rule {spec} on the card: {on_card} (== --device cpu)")
     drive_server(server)
     stamp("the main paths and the entry points")
+    elementary = elementary_phase(cs, card, dev, repo, work)
+    stamp("the elementary paths")
+    cli_round_trip(repo, work)
+    shutil.rmtree(work)
+    stamp("the CLI's checkpoint round trip")
+    print("records (plain-torch paths, no TPU kernel): elementary ensemble "
+          f"W110 {elementary['W110']:.4e}, W30 {elementary['W30']:.4e}, "
+          f"(1, 4) mesh {elementary['sharded']:.4e} cell-updates/s; "
+          + "; ".join(f"{spec} save {r['save_s']:.4f} s load {r['load_s']:.4f} "
+                      f"s {r['mib']:.2f} MiB" for spec, r in resumed.items())
+          + f"; sharded v2 write {sharded_v2['write_s']:.4f} s, fallback "
+          f"load {sharded_v2['load_s']:.4f} s, {sharded_v2['mib']:.2f} MiB  "
+          f"[{card}]")
 
     serving = serve_phase(cs, card)
     # B2 runs on two main paths: its lane form serves the lanes, its slab

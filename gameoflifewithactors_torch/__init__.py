@@ -2,9 +2,9 @@
 and CUDA.
 
 The port of ``gameoflifewithactors_tpu`` to one NVIDIA H100: the same
-rules (life-like, Generations, Larger than Life), bit layout, engine and
-actor-shaped façade, written in PyTorch, with the temporal-blocked packed
-stencils as hand-written CUDA kernels (``ops/cuda_stencil.py``,
+rules (life-like, Generations, Larger than Life, elementary 1D), bit
+layout, engine, checkpoints and actor-shaped façade, written in PyTorch,
+with the temporal-blocked packed stencils as hand-written CUDA kernels (``ops/cuda_stencil.py``,
 ``csrc/life_packed.cu``, ``csrc/life_slab.cu``,
 ``csrc/life_generations.cu``, ``csrc/life_ltl.cu``), on one device or on
 a mesh (``parallel/``). It imports nothing of JAX or of the JAX package.
@@ -29,6 +29,18 @@ from .models.generations import (  # noqa: F401
     parse_generations,
 )
 from .models.ltl import BOSCO, LTL_REGISTRY, LtLRule, parse_ltl  # noqa: F401
+from .models.elementary import (  # noqa: F401
+    RULE_30,
+    RULE_90,
+    RULE_110,
+    ElementaryRule,
+    parse_elementary,
+)
+from .ops.elementary import (  # noqa: F401
+    evolve_spacetime,
+    multi_step_elementary,
+    step_elementary,
+)
 from .models import seeds  # noqa: F401
 from .ops.stencil import Topology, step, multi_step  # noqa: F401
 from .ops.bitpack import pack, unpack, population  # noqa: F401

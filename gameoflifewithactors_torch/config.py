@@ -3,9 +3,11 @@
 Counterpart of ``gameoflifewithactors_tpu.config`` for the flags of the
 ported paths: grid, rule (life-like, Generations or Larger than Life),
 topology, seed, backend, steps, rendering, rate, metrics, population, the
-device, the mesh and the generations per halo exchange.
-``SimulationConfig.build()`` assembles the mesh, the coordinator and the
-scheduler, so the CLI and library users share one construction path.
+device, the mesh, the generations per halo exchange, checkpoint and
+resume, the PPM and RLE outputs, and ``--list``.
+``SimulationConfig.build()`` assembles the mesh, the coordinator (from a
+checkpoint with ``resume``) and the scheduler, so the CLI and library
+users share one construction path.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ class SimulationConfig:
     rate_hz: Optional[float] = None
     metrics: Optional[str] = None           # "jsonl" | "csv:PATH" | None
     track_population: bool = False
+    checkpoint: Optional[str] = None        # save path (written at end)
+    resume: Optional[str] = None            # checkpoint to resume from
+    ppm: Optional[str] = None               # final-frame / spacetime PPM path
+    ppm_every: int = 0                      # full-res frame sequence cadence
+    save_rle: Optional[str] = None          # final state as RLE
 
     # -- assembly ------------------------------------------------------------
 
@@ -83,34 +90,49 @@ class SimulationConfig:
         raise ValueError(f"--metrics must be 'jsonl' or 'csv:PATH', got {self.metrics!r}")
 
     def build(self):
-        """Construct the (mesh, coordinator, scheduler) stack."""
+        """Construct the (mesh, coordinator, scheduler) stack; with
+        ``resume``, the coordinator wraps the checkpoint's engine (its
+        grid, rule, topology and generation win over the config's)."""
         from .coordinator import GridCoordinator
         from .models import seeds as seeds_lib
         from .scheduler import TickScheduler
+        from .utils import checkpoint as ckpt_lib
 
-        # random_fill overrides the default seed (only an *explicitly*
-        # conflicting combination should error, and GridCoordinator can't
-        # tell a default 'glider' from a requested one)
-        seed = None if self.random_fill is not None else self.seed
-        if isinstance(seed, str) and seed.startswith("@"):
-            with open(seed[1:]) as f:
-                seed = seeds_lib.from_rle(f.read())
-        coordinator = GridCoordinator(
-            (self.height, self.width),
-            self.rule,
-            seed=seed,
-            seed_origin=self.seed_origin,
-            random_fill=self.random_fill,
-            rng_seed=self.rng_seed,
-            topology=Topology(self.topology),
-            backend=self.backend,
-            device=self.device,
-            track_population=self.track_population,
-            metrics=self.build_metrics(),
-            view_shape=(self.view_height, self.view_width),
-            mesh=self.build_mesh(),
-            gens_per_exchange=self.gens_per_exchange,
-        )
+        mesh = self.build_mesh()
+        if self.resume:
+            engine = ckpt_lib.load_engine(self.resume, mesh=mesh,
+                                          backend=self.backend,
+                                          device=self.device)
+            coordinator = GridCoordinator.from_engine(
+                engine,
+                track_population=self.track_population,
+                metrics=self.build_metrics(),
+                view_shape=(self.view_height, self.view_width),
+            )
+        else:
+            # random_fill overrides the default seed (only an *explicitly*
+            # conflicting combination should error, and GridCoordinator
+            # can't tell a default 'glider' from a requested one)
+            seed = None if self.random_fill is not None else self.seed
+            if isinstance(seed, str) and seed.startswith("@"):
+                with open(seed[1:]) as f:
+                    seed = seeds_lib.from_rle(f.read())
+            coordinator = GridCoordinator(
+                (self.height, self.width),
+                self.rule,
+                seed=seed,
+                seed_origin=self.seed_origin,
+                random_fill=self.random_fill,
+                rng_seed=self.rng_seed,
+                topology=Topology(self.topology),
+                backend=self.backend,
+                device=self.device,
+                track_population=self.track_population,
+                metrics=self.build_metrics(),
+                view_shape=(self.view_height, self.view_width),
+                mesh=mesh,
+                gens_per_exchange=self.gens_per_exchange,
+            )
         scheduler = TickScheduler(
             coordinator,
             rate_hz=self.rate_hz,
@@ -137,11 +159,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--rule", default="B3/S23",
                    help="rule string or name: life-like B/S (conway, highlife, "
                         "'day & night', ...), Generations (B2/S/C3, brain, "
-                        "starwars, ...) or Larger than Life "
-                        "(R5,C0,M1,S34..58,B34..45, bosco, majority, ...)")
+                        "starwars, ...), Larger than Life "
+                        "(R5,C0,M1,S34..58,B34..45, bosco, majority, ...) or "
+                        "elementary 1D (W110, rule30: the spacetime route, "
+                        "--grid 1xW)")
     p.add_argument("--topology", choices=[t.value for t in Topology], default="torus")
     p.add_argument("--seed", default="glider",
-                   help="pattern name, @file.rle, 'random', or 'empty'")
+                   help="pattern name, @file.rle, 'random', or 'empty' "
+                        "(1D W-rules: 'center', the default, 'random' or "
+                        "'empty')")
     p.add_argument("--random-p", type=float, default=0.5, help="fill prob for --seed random")
     p.add_argument("--seed-at", type=_parse_geometry, default=None, metavar="RxC",
                    help="pattern top-left placement (default: centered)")
@@ -170,6 +196,30 @@ def make_parser() -> argparse.ArgumentParser:
                    help="tick rate limit; default unthrottled")
     p.add_argument("--metrics", default=None, help="'jsonl' (stderr) or 'csv:PATH'")
     p.add_argument("--population", action="store_true", help="track live-cell count")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="write final state here")
+    p.add_argument("--ppm", default=None, metavar="PATH",
+                   help="write the final grid (2D rules) or the full "
+                        "spacetime diagram (1D W-rules) as a PPM image")
+    p.add_argument("--ppm-every", type=int, default=0, metavar="N",
+                   help="with --ppm PATH: write a FULL-resolution frame "
+                        "every N generations as PATH-stem_NNNNNN.ppm "
+                        "(ffmpeg-ready sequence; the final single --ppm "
+                        "write is skipped -- the last frame is in the "
+                        "sequence). Under --render live/--rate/--metrics "
+                        "the sequence follows the tick cadence "
+                        "(--render-every) instead")
+    p.add_argument("--save-rle", default=None, metavar="PATH",
+                   help="write the final state as standard RLE (Golly-"
+                        "compatible; multi-state rules in Golly's extended "
+                        "form -- round-trips with --seed @file.rle)")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="resume from a checkpoint (the checkpoint's grid/rule/"
+                        "seed/topology win; --grid/--rule/--seed/--topology "
+                        "are ignored)")
+    p.add_argument("--list", action="store_true",
+                   help="print the registered seed patterns and named rules "
+                        "of every family, then exit")
     return p
 
 
@@ -196,5 +246,10 @@ def from_args(argv=None) -> "tuple[SimulationConfig, argparse.Namespace]":
         rate_hz=args.rate,
         metrics=args.metrics,
         track_population=args.population,
+        checkpoint=args.checkpoint,
+        resume=args.resume,
+        ppm=args.ppm,
+        ppm_every=args.ppm_every,
+        save_rle=args.save_rle,
     )
     return cfg, args

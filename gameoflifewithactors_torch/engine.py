@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .models.elementary import ElementaryRule
 from .models.generations import GenRule, parse_any
 from .models.ltl import LtLRule
 from .models.rules import Rule
@@ -191,12 +192,14 @@ class Engine:
         topology: Topology = Topology.TORUS,
         backend: str = "auto",
         device=None,
+        mesh: Optional[Mesh] = None,
     ) -> "Engine":
         """An engine whose state is the given packed words: a host
         ``(H, W/32)`` uint32 array such as ``np.asarray(jax_engine.state)``,
         or a ``(b, H, W/32)`` bit-plane stack for a multi-state rule, or an
-        int32 tensor of either shape. A run handed over mid-way continues
-        bit for bit."""
+        int32 tensor of either shape, placed on ``mesh`` if one is given.
+        A run handed over mid-way (or read back from a checkpoint)
+        continues bit for bit."""
         if isinstance(words, torch.Tensor):
             if words.dtype != torch.int32 or words.dim() not in (2, 3):
                 raise TypeError("packed words must be a 2D or 3D int32 tensor")
@@ -205,7 +208,7 @@ class Engine:
             packed = state_from_numpy(words)
         self = cls.__new__(cls)
         h, wp = packed.shape[-2:]
-        self._configure(rule, topology, backend, device, None,
+        self._configure(rule, topology, backend, device, mesh,
                         (h, wp * bitpack.WORD))
         want = n_planes(self._states) if self._states > 2 else None
         have = packed.shape[0] if packed.dim() == 3 else None
@@ -217,16 +220,23 @@ class Engine:
                 + f", got shape {tuple(packed.shape)}")
         packed = packed.to(self.device, copy=True)
         if self._layout == "dense":
-            self._state = unpack_generations(packed) if want else \
+            packed = unpack_generations(packed) if want else \
                 bitpack.unpack(packed)
-        else:
-            self._state = packed
+        self._state = self._place(packed)
         return self
 
     def _configure(self, rule, topology: Topology, backend: str, device,
                    mesh: Optional[Mesh], shape: Tuple[int, int],
                    gens_per_exchange: Optional[int] = None) -> None:
         self.rule = parse_any(rule)
+        if isinstance(self.rule, ElementaryRule):
+            raise ValueError(
+                f"{self.rule.notation} is a 1D (elementary) rule; the Engine "
+                "drives 2D grids. Use the CLI spacetime route "
+                "(python -m gameoflifewithactors_torch --rule "
+                f"{self.rule.notation} --render final), or ops.elementary "
+                "directly: multi_step_elementary / evolve_spacetime on a "
+                "packed row (see examples/wolfram.py)")
         if backend in _UNPORTED_BACKENDS:
             if mesh is not None:
                 raise _not_ported(f"the sharded {backend!r} backend",

@@ -13,8 +13,7 @@ what Golly writes in RLE headers; counts are single digits 0..8, so the
 form is unambiguous — only the trailing states field is multi-digit).
 
 :func:`parse_any` dispatches a spec to its family by shape: life-like,
-Generations or Larger than Life. The elementary (1D) family is not ported
-yet and raises ``NotImplementedError``.
+Generations, Larger than Life or elementary (1D).
 """
 
 from __future__ import annotations
@@ -115,15 +114,15 @@ def parse_generations(spec: "str | GenRule") -> GenRule:
 
 
 def parse_any(spec):
-    """Life-like, Generations, or Larger-than-Life, decided by the *shape*
-    of the spec — a string matching a family's form dispatches to that
-    family's parser so validation errors (e.g. a bad state count) surface
-    verbatim instead of degrading to 'unrecognized rule'. An elementary
-    (1D) spec raises ``NotImplementedError``: that family is not ported."""
+    """Life-like, Generations, Larger-than-Life or elementary (1D), decided
+    by the *shape* of the spec — a string matching a family's form
+    dispatches to that family's parser so validation errors (e.g. a bad
+    state count) surface verbatim instead of degrading to 'unrecognized
+    rule'."""
+    from .elementary import _ELEM_RE, ElementaryRule, parse_elementary
     from .ltl import _LTL_RE, LTL_REGISTRY, LtLRule, parse_ltl
-    from .rules import unported_family
 
-    if isinstance(spec, (Rule, GenRule, LtLRule)):
+    if isinstance(spec, (Rule, GenRule, LtLRule, ElementaryRule)):
         return spec
     key = spec.strip().lower().replace(" ", "").replace("'", "")
     if (key in GENERATIONS_REGISTRY or _GEN_RE.match(key)
@@ -131,9 +130,6 @@ def parse_any(spec):
         return parse_generations(spec)
     if key in LTL_REGISTRY or _LTL_RE.match(key):
         return parse_ltl(spec)
-    family = unported_family(spec)
-    if family is not None:
-        raise NotImplementedError(
-            f"the {family} rule family ({spec!r}) is not yet ported to "
-            "gameoflifewithactors_torch (see ROADMAP.md queue A)")
+    if _ELEM_RE.match(key):
+        return parse_elementary(spec)
     return parse_rule(spec)

@@ -14,9 +14,8 @@ survives; everything else dies. Counts range over 0..8 (Moore neighborhood).
 This is the PyTorch package's own copy of ``gameoflifewithactors_tpu``'s
 rule algebra (the port imports nothing of that package). The Generations
 and Larger-than-Life families live in :mod:`.generations` and :mod:`.ltl`
-(:func:`.generations.parse_any` dispatches between all three); the
-elementary family is not ported yet: :func:`unported_family` recognises
-its notation so callers can say so.
+and the elementary (1D) family in :mod:`.elementary`
+(:func:`.generations.parse_any` dispatches between all four).
 """
 
 from __future__ import annotations
@@ -154,22 +153,3 @@ RULE_REGISTRY = {
     "coral": CORAL,
 }
 
-
-# Notations of the rule families this package does not port yet, so a
-# request for one fails as "not yet ported" rather than as an unparseable
-# B/S string.
-_UNPORTED = (
-    ("elementary", re.compile(r"^(?:w|rule)\d{1,3}$")),
-)
-
-
-def unported_family(spec: "str | Rule") -> "str | None":
-    """The name of the not-yet-ported rule family ``spec`` belongs to, or
-    None for any other spec."""
-    if isinstance(spec, Rule):
-        return None
-    key = spec.strip().lower().replace(" ", "").replace("'", "")
-    for family, pattern in _UNPORTED:
-        if pattern.match(key):
-            return family
-    return None

@@ -28,9 +28,12 @@ takes it and a number of generations and returns the stepped grid.
   :func:`make_multi_step_generations`, :func:`make_multi_step_ltl`,
   :func:`make_step_dense` / :func:`make_multi_step_dense`.
 
+- :func:`make_multi_step_elementary_sharded`: 1D elementary rules on 2D
+  tiles, rows independent universes, the width sharded over COL_AXIS, one
+  halo word per side per chunk of ``g`` generations.
+
 Not ported (ROADMAP A12): the communication-avoiding deep and ghost-zone
-packed runners, the sharded sparse runners (with A9) and the sharded
-elementary runner (with A7).
+packed runners and the sharded sparse runners (with A9).
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from ..models.elementary import ElementaryRule
 from ..models.generations import GenRule
 from ..models.ltl import LtLRule
 from ..models.rules import Rule
 from ..ops import cuda_stencil
 from ..ops import stencil as stencil_ops
+from ..ops.elementary import step_elementary
 from ..ops.generations import step_generations_ext
 from ..ops.ltl import step_ltl_ext
 from ..ops.packed import step_packed_ext, step_packed_slab
@@ -54,8 +59,14 @@ from ..ops.packed_ltl import (
     step_ltl_planes_ext,
 )
 from ..ops.stencil import Topology
-from .halo import band_edge_codes, exchange_cols, exchange_halo, exchange_rows
-from .mesh import Mesh, ShardedGrid, band_axis
+from .halo import (
+    band_edge_code,
+    band_edge_codes,
+    exchange_cols,
+    exchange_halo,
+    exchange_rows,
+)
+from .mesh import COL_AXIS, Mesh, ShardedGrid, band_axis
 
 Runner = Callable[[ShardedGrid, int], ShardedGrid]
 
@@ -313,3 +324,72 @@ def make_multi_step_ltl_planes(mesh: Mesh, rule: LtLRule,
         mesh, topology, _two_phase(mesh, topology, rule.radius, 1),
         lambda ext: torch.stack(step_ltl_planes_ext(
             tuple(ext[j] for j in range(ext.shape[0])), rule)))
+
+
+def make_multi_step_elementary_sharded(
+    mesh: Mesh,
+    rule: ElementaryRule,
+    topology: Topology = Topology.TORUS,
+    gens_per_exchange: int = 8,
+) -> Runner:
+    """Sharded 1D (elementary Wolfram) stepping: the counterpart of JAX
+    ``make_multi_step_elementary_sharded``.
+
+    Layout: a 2D-tiled (H, W/32) packed grid, rows = independent
+    universes (data parallelism over the mesh's row axis, no
+    communication), width sharded over the column axis. Per chunk each
+    position takes ONE halo word (32 cells) per side from its column
+    neighbours (:func:`.halo.exchange_cols`), then advances ``g =
+    gens_per_exchange`` generations with open (DEAD) closure at the slab
+    ends: corruption creeps inward 1 cell per generation from the cropped
+    slab edge, so the 32-cell halo word absorbs it exactly for g <= 32.
+
+    Global DEAD topology: the leftmost/rightmost positions' halo words are
+    permanently-dead exterior, re-zeroed before every in-slab generation
+    (a birth just outside the edge would otherwise feed back from the 2nd
+    generation on), chosen by the column-axis edge code of each position
+    (:func:`.halo.band_edge_code` over the column positions).
+
+    Returns ``(grid, chunks) -> grid`` advancing ``chunks * g``
+    generations.
+    """
+    g = int(gens_per_exchange)
+    if not 1 <= g <= 32:
+        raise ValueError(
+            f"gens_per_exchange must be in [1, 32] (the 32-cell halo word "
+            f"bounds how far edge corruption may creep), got {g}")
+    ny = mesh.shape[COL_AXIS]
+    keep = None
+    if topology is Topology.DEAD:
+        # per device and exterior side, a (k, 1) int32 mask over its k
+        # positions: all ones, 0 where the position's column edge code says
+        # that side is the grid's edge
+        keep = []
+        for device, positions in mesh.groups:
+            codes = [band_edge_code(ny, p % ny) for p in positions]
+            west = torch.tensor([0 if c & 1 else -1 for c in codes],
+                                dtype=torch.int32, device=device)
+            east = torch.tensor([0 if c & 2 else -1 for c in codes],
+                                dtype=torch.int32, device=device)
+            keep.append((west.view(-1, 1), east.view(-1, 1)))
+
+    def chunk(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        out = []
+        for i, ext in enumerate(exchange_cols(parts, mesh, topology)):
+            for _ in range(g):
+                if keep is not None:
+                    # ext is this runner's own tensor (a cat, then a step)
+                    west, east = keep[i]
+                    ext[..., 0] &= west
+                    ext[..., -1] &= east
+                ext = step_elementary(ext, rule=rule, topology=Topology.DEAD)
+            out.append(ext[..., 1:-1].contiguous())
+        return out
+
+    def run(state: ShardedGrid, chunks: int) -> ShardedGrid:
+        parts = state.parts
+        for _ in range(int(chunks)):
+            parts = chunk(parts)
+        return state.with_parts(parts)
+
+    return run

@@ -113,14 +113,21 @@ def test_unported_families_and_backends_raise():
     from gameoflifewithactors_torch.parallel.mesh import make_mesh
 
     for kwargs in [
-        dict(rule="W110"), dict(rule="rule30"),
         dict(backend="sparse"), dict(backend="paged"),
         dict(mesh=make_mesh((1, 1), ["cpu"]), backend="sparse"),
     ]:
-        args = dict(rule="conway", **kwargs) if "rule" not in kwargs else dict(kwargs)
-        rule = args.pop("rule")
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            tg.Engine(np.zeros((8, 32), np.uint8), rule, device="cpu", **args)
+            tg.Engine(np.zeros((8, 32), np.uint8), "conway", device="cpu",
+                      **kwargs)
+    # elementary (1D) rules are ported, but the 2D Engine refuses them with
+    # the JAX engine's ValueError, naming this package's CLI
+    for rule in ["W110", "rule30"]:
+        with pytest.raises(ValueError) as j_err:
+            jg.Engine(np.zeros((8, 32), np.uint8), rule)
+        with pytest.raises(ValueError) as t_err:
+            tg.Engine(np.zeros((8, 32), np.uint8), rule, device="cpu")
+        assert str(t_err.value) == str(j_err.value).replace(
+            "gameoflifewithactors_tpu", "gameoflifewithactors_torch")
 
 
 def test_unknown_backend_and_rule_raise_value_error():

@@ -134,9 +134,14 @@ def test_backend_errors():
         tg.Engine(grid, "brain", backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="multiple of 32"):
         tg.Engine(np.zeros((8, 40), np.uint8), "brain", backend="packed", device="cpu")
-    for rule in ["W110", "rule30"]:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for rule in ["W110", "rule30"]:   # 1D: the JAX engine's ValueError
+        with pytest.raises(ValueError) as j_err:
+            jg.Engine(grid, rule)
+        with pytest.raises(ValueError) as t_err:
             tg.Engine(grid, rule, device="cpu")
+        assert str(t_err.value) == str(j_err.value).replace(
+            "gameoflifewithactors_tpu", "gameoflifewithactors_torch")
+        assert "is a 1D (elementary) rule" in str(t_err.value)
     for backend in ("sparse", "paged"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tg.Engine(grid, "bosco", backend=backend, device="cpu")

@@ -71,10 +71,11 @@ def test_error_parity():
             t_gen.GenRule(frozenset({2}), frozenset(), states)
     with pytest.raises(ValueError, match="0..8"):
         t_gen.GenRule(frozenset({9}), frozenset(), 3)
-    # the elementary family is not ported: the port says so
-    for spec in ["W110", "rule30"]:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_gen.parse_any(spec)
+    # the elementary family dispatches as in the JAX package
+    for spec in ["W110", "rule30", "Rule 90"]:
+        got, want = t_gen.parse_any(spec), j_gen.parse_any(spec)
+        assert type(got).__name__ == type(want).__name__ == "ElementaryRule"
+        assert (got.number, got.notation) == (want.number, want.notation)
 
 
 @pytest.mark.parametrize("topology", ["torus", "dead"])

@@ -50,7 +50,9 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "obs.device", "resilience.supervisor", "parallel.halo",
              "parallel.batched", "parallel.mesh", "parallel.sharded",
              "serve.session", "serve.admission",
-             "serve.lanes", "serve.service", "serve.frontend"):
+             "serve.lanes", "serve.service", "serve.frontend",
+             "models.elementary", "ops.elementary", "parallel.multihost",
+             "utils.checkpoint"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
