@@ -45,7 +45,19 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    W30 DEAD, 2000 generations against a dense truth-table reference, the
    W110 run on a (1, 4) mesh, and the CLI's 1D route with ``--ppm``. The
    CLI's ``--checkpoint``/``--resume`` round trip at 4096² with
-   ``--save-rle`` and ``--ppm``, with and without ``--mesh bands``.
+   ``--save-rle`` and ``--ppm``, with and without ``--mesh bands``. The
+   activity-tiled engines (plain torch: no TPU kernel serves them, and
+   they launch no kernel): BASELINE.json config #5, a Gosper gun at the
+   centre of a 65536² TORUS field, 2000 generations on
+   ``Engine(backend="sparse")``, ``backend="paged"`` (capacity 4096) and
+   ``backend="cuda"`` (B1), equal on the card, each with its rate, active
+   tiles, capacity, dispatches and host syncs per generation and peak
+   memory; Brian's Brain and Bosco 512² blobs in 8192² fields on the
+   sparse engine against B3 and B4 (and B3/S23 against B1), each also at a
+   fixed capacity of 8 whose dense fallback must be exact; 256
+   mostly-empty 1024² sessions (gliders and guns) through
+   ``SessionService(paged=True)``, each equal to its dedicated engine, and
+   a ``paged1`` save and load.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -1217,6 +1229,282 @@ def serve_phase(cs, card: str) -> dict:
             "cells": cells}
 
 
+CONFIG5_SIDE = 65536           # BASELINE.json config #5: a Gosper gun, 65536^2
+CONFIG5_GENERATIONS = 2000
+CONFIG5_PAGED_CAPACITY = 4096
+FAMILY_SIDE = 8192             # the other families' sparse runs
+PAGED_SESSIONS = 256           # mostly-empty 1024^2 sessions: gliders, guns
+PAGED_GENERATIONS = 512
+PAGED_POOL_TILES = 32768       # 16x1-word tiles, 64 bytes each: 2 MiB
+
+
+def _tiled_run(make, n: int):
+    """(engine, seconds to build it, seconds to step it ``n`` generations,
+    peak bytes beyond what was allocated before) of ``make()``, each timed
+    region closed by a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make()
+    engine.block_until_ready()
+    t1 = time.perf_counter()
+    engine.step(n)
+    engine.block_until_ready()
+    t2 = time.perf_counter()
+    return engine, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() - base
+
+
+def _device_activity(engine, n: int):
+    """(device ops per generation, device-busy ms per generation) of ``n``
+    more generations under ``torch.profiler``: every kernel, copy and fill
+    the card ran, by ``key_averages``; (None, None) where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step(n)
+        engine.block_until_ready()
+    ops, busy_us = 0, 0.0
+    for row in prof.key_averages():
+        t = getattr(row, "self_device_time_total", None)
+        if t is None:
+            t = getattr(row, "self_cuda_time_total", 0.0)
+        if t > 0:
+            ops += row.count
+            busy_us += t
+    if busy_us == 0:
+        return None, None
+    return ops / n, busy_us / 1e3 / n
+
+
+def tiled_phase(cs, card: str) -> dict:
+    """Phase 3 for the activity-tiled engines (``ops/sparse.py``, ``memory/``;
+    plain torch: no TPU kernel serves them, and they launch none of
+    B1-B4): config #5 at its stated size on the sparse, paged and B1
+    engines; Brian's Brain and Bosco blobs on the sparse engine against
+    B3 and B4; a fixed capacity of 8 whose dense fallback must be exact;
+    paged serving of many mostly-empty sessions. Returns the records."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.memory import step_grids
+    from gameoflifewithactors_torch.models import seeds
+    from gameoflifewithactors_torch.obs.registry import MetricsRegistry
+    from gameoflifewithactors_torch.ops import bitpack
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.serve import (AdmissionController,
+                                                  SessionService, encode_words)
+    from gameoflifewithactors_torch.utils import checkpoint as ckpt
+
+    out = {}
+    # -- config #5: a word-aligned Gosper gun at the centre of 65536^2 ------
+    side, n = CONFIG5_SIDE, CONFIG5_GENERATIONS
+    words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
+                                left_word=side // bitpack.WORD // 2)
+    finals = {}
+    for backend, opts, kernel in (
+            ("sparse", None, None),
+            ("paged", {"capacity": CONFIG5_PAGED_CAPACITY}, None),
+            ("cuda", None, "life_packed")):
+        reset_launches(cs)
+        engine, build_s, wall, peak = _tiled_run(lambda: Engine.from_packed(
+            words, "B3/S23", topology=Topology.TORUS, backend=backend,
+            device="cuda", sparse_opts=opts), n)
+        counts = launches(cs)
+        check(all(v == 0 for k, v in counts.items() if k != kernel),
+              f"config #5 on {backend} launched {counts}")
+        state = engine._sparse
+        if kernel is None:
+            counter = state if backend == "sparse" else state.pool
+            dispatches, syncs = counter.dispatches, counter.syncs
+            check(engine.state.is_cuda and (state.padded.is_cuda),
+                  f"config #5 {backend} state is not on the card")
+            capacity = state.capacity if backend == "sparse" else \
+                state.pool.capacity
+        else:
+            check(counts[kernel] == math.ceil(n / cs.DEFAULT_GENS_PER_CALL),
+                  f"config #5 B1 launches {counts}")
+            dispatches, syncs, capacity = counts[kernel], 0, None
+        finals[backend] = engine.state.contiguous()
+        rec = {"gens_per_s": n / wall, "cell_updates": side * side * n / wall,
+               "active_tiles": engine.active_tiles(), "capacity": capacity,
+               "dispatches_per_gen": dispatches / n,
+               "syncs_per_gen": syncs / n, "peak_mib": peak / 2 ** 20,
+               "wall": wall, "build_s": build_s}
+        # after the timed run and its result: 64 more generations under the
+        # profiler, for the card's share of a generation
+        ops, busy = _device_activity(engine, 64)
+        rec["device_ops_per_gen"], rec["device_ms_per_gen"] = ops, busy
+        activity = "device activity not measured (no device time in the " \
+            "profile)" if busy is None else (
+                f"{ops:.1f} device ops and {busy:.5f} ms of device time per "
+                f"generation (profiled), {busy / (1e3 * wall / n):.1%} of "
+                "the timed generation")
+        out[f"config5 {backend}"] = rec
+        print(f"config #5 ({side}x{side} Gosper gun, TORUS, {n} generations) "
+              f"on backend {backend!r}: built in {build_s:.4f} s, stepped in "
+              f"{wall:.4f} s host clock incl. sync, {1e3 * wall / n:.5f} ms "
+              f"and {rec['gens_per_s']:.2f} gens/s, {rec['cell_updates']:.4e} "
+              f"nominal cell-updates/s; active tiles {rec['active_tiles']}, "
+              f"capacity {capacity}; {rec['dispatches_per_gen']:.4f} "
+              f"dispatches and {rec['syncs_per_gen']:.4f} host syncs per "
+              f"generation; {activity}; peak {rec['peak_mib']:.1f} MiB "
+              f"beyond the start  [{card}]")
+        del engine, state
+    check(torch.equal(finals["sparse"], finals["cuda"])
+          and torch.equal(finals["paged"], finals["cuda"]),
+          "config #5: the sparse, paged and B1 grids differ")
+    pop = bitpack.population(finals["cuda"])
+    check(pop > 36, f"config #5 population {pop}: the gun did not fire")
+    print(f"config #5 results: sparse == paged == B1 on the card after {n} "
+          f"generations (torch.equal), population {pop}")
+    del finals, words
+    torch.cuda.empty_cache()
+
+    # -- the other families at 8192^2, and the forced overflow ------------
+    side = FAMILY_SIDE
+    rng = np.random.default_rng(11)
+    for spec, states, topology, gens, kernel in (
+            ("brain", 3, Topology.TORUS, 600, "life_generations"),
+            ("bosco", 2, Topology.DEAD, 400, "life_ltl"),
+            ("B3/S23", 2, Topology.TORUS, 300, "life_packed")):
+        cells = np.zeros((side, side), np.uint8)
+        blob = (rng.random((512, 512)) < 0.45) * rng.integers(
+            1, states, (512, 512))
+        c = side // 2 - 256
+        cells[c:c + 512, c:c + 512] = blob
+        results = {}
+        for backend, opts in (("sparse", None), ("sparse", {"capacity": 8}),
+                              ("cuda", None)):
+            reset_launches(cs)
+            engine, _, wall, _ = _tiled_run(lambda: Engine(
+                cells, spec, topology=topology, backend=backend,
+                sparse_opts=opts), gens)
+            counts = launches(cs)
+            want = {kernel: counts[kernel]} if backend == "cuda" else {}
+            check(all(v == 0 for k, v in counts.items() if k not in want),
+                  f"{spec} on {backend} launched {counts}")
+            label = backend if opts is None else "capacity 8"
+            results[label] = (engine.state.contiguous(), wall,
+                              engine.active_tiles(), engine.population(),
+                              getattr(engine._sparse, "capacity", None))
+            del engine
+        truth = results["cuda"][0]
+        for label in ("sparse", "capacity 8"):
+            check(torch.equal(results[label][0], truth),
+                  f"{spec} {side}^2 {label} differs from {kernel}")
+        check(results["capacity 8"][4] == 8, "the fixed capacity moved")
+        rec = {label: {"wall": r[1], "cell_updates": side * side * gens / r[1],
+                       "active_tiles": r[2], "capacity": r[4]}
+               for label, r in results.items()}
+        out[f"family {spec}"] = rec
+        print(f"{spec} {side}x{side} {topology.value}, 512^2 blob, {gens} "
+              f"generations: sparse == capacity 8 (dense fallback) == "
+              f"{kernel} (torch.equal), population {results['cuda'][3]}; "
+              + "; ".join(f"{label} {r['wall']:.4f} s, {r['cell_updates']:.4e} "
+                          f"nominal cell-updates/s, active tiles "
+                          f"{r['active_tiles']}, capacity {r['capacity']}"
+                          for label, r in rec.items()) + f"  [{card}]")
+        del results, truth
+    torch.cuda.empty_cache()
+
+    # -- paged serving: mostly-empty 1024^2 sessions ------------------------
+    h, w = LANE_SHAPE
+    spec = {"rule": "B3/S23", "height": h, "width": w, "topology": "dead"}
+    reg = MetricsRegistry()
+    svc = SessionService(paged=True, registry=reg,
+                         paged_opts={"capacity": PAGED_POOL_TILES},
+                         admission=AdmissionController(registry=reg))
+    sessions = []
+    for i in range(PAGED_SESSIONS):
+        pattern = "glider" if i % 2 else "gosper_gun"
+        top, left = 64 + (i * 37) % 768, 64 + (i * 91) % 640
+        cells = seeds.seeded((h, w), pattern, top, left)
+        info = svc.create(f"tenant{i % 4}", spec,
+                          cells_hex=encode_words(bitpack.pack_np(cells)))
+        check(info["spec"]["backend"] == "packed" and info["lane"].endswith(
+            "#paged"), f"paged service placed {info}")
+        sessions.append([info["sid"], cells, 0])
+    tile_pool = next(iter(svc._tile_pools.values()))
+    reset_launches(cs)
+    for k, sess in enumerate(sessions):
+        sess[2] = 37 if k % 3 else 64
+        svc.step(sess[0], sess[2], pump=False)
+    svc.pump()
+    torch.cuda.synchronize()
+    d0, s0 = tile_pool.dispatches, tile_pool.syncs
+    t0 = time.perf_counter()
+    for sess in sessions:
+        svc.step(sess[0], PAGED_GENERATIONS - 64, pump=False)
+        sess[2] += PAGED_GENERATIONS - 64
+    svc.pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches(cs)
+    check(all(v == 0 for v in counts.values()),
+          f"paged serving launched {counts}")
+    chunks = tile_pool.dispatches - d0
+    pool_bytes = tile_pool.in_use() * tile_pool.tile_bytes()
+    # a full 256-slot ladder lane of these sessions: (256, H, W/32) words
+    ladder_bytes = PAGED_SESSIONS * h * (w // bitpack.WORD) * 4
+    rate = h * w * PAGED_SESSIONS * (PAGED_GENERATIONS - 64) / wall
+    print(f"paged serving: {PAGED_SESSIONS} sessions of {h}x{w} B3/S23 DEAD "
+          f"({PAGED_SESSIONS // 2} gliders, {PAGED_SESSIONS // 2} Gosper guns) "
+          f"on one tile pool of {tile_pool.capacity} {tile_pool.tile_rows}x"
+          f"{tile_pool.tile_words}-word tiles; cursors 37/64, then "
+          f"{PAGED_GENERATIONS - 64} more each: {wall:.4f} s host clock incl. "
+          f"sync, {rate:.4e} nominal cell-updates/s, {chunks} pool dispatches "
+          f"({tile_pool.syncs - s0} flag readbacks); pool holds "
+          f"{tile_pool.in_use()} tiles = {pool_bytes / 2 ** 20:.3f} MiB "
+          f"against {ladder_bytes / 2 ** 20:.1f} MiB of words in a ladder "
+          f"lane of the same sessions; no kernel launched  [{card}]")
+    lane = next(iter(next(iter(svc.pools.values())).lanes.values()))
+    for sid, cells, gens in sessions:
+        info = svc.info(sid)
+        check(info["generation"] == gens and info["pending_steps"] == 0,
+              f"{sid}: {info}")
+        engine = Engine(cells, "B3/S23", topology=Topology.DEAD,
+                        backend="cuda")
+        engine.step(gens)
+        check(torch.equal(lane.grids[info["slot"]].to_tensor()[0],
+                          engine.state),
+              f"paged session {sid} differs from its dedicated Engine run")
+    print(f"paged serving results: all {PAGED_SESSIONS} sessions == their "
+          "dedicated Engine(backend='cuda') runs")
+    # a paged1 save and load of one grid (a gun's), continued 64 more
+    sid, cells, gens = sessions[0]
+    grid = lane.grids[svc.info(sid)["slot"]]
+    work = tempfile.mkdtemp(prefix="chip_smoke_paged_")
+    t0 = time.perf_counter()
+    path = ckpt.save_paged(grid, os.path.join(work, "gun.npz"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, meta = ckpt.load_paged(path)
+    load_s = time.perf_counter() - t0
+    check(loaded.pages.keys() == grid.pages.keys()
+          and torch.equal(loaded.to_tensor(), grid.to_tensor())
+          and meta["generation"] == gens, "paged1 round trip differs")
+    step_grids(loaded.pool, [loaded], 64)
+    engine = Engine(cells, "B3/S23", topology=Topology.DEAD, backend="cuda")
+    engine.step(gens + 64)
+    check(torch.equal(loaded.to_tensor()[0], engine.state),
+          "the reloaded paged grid's continuation differs")
+    print(f"paged1: one gun's {len(grid.pages)} pages saved in {save_s:.4f} "
+          f"s ({os.path.getsize(path)} bytes), loaded onto the card in "
+          f"{load_s:.4f} s, continued 64 generations == its Engine run  "
+          f"[{card}]")
+    shutil.rmtree(work)
+    out["paged serving"] = {"rate": rate, "wall": wall, "chunks": chunks,
+                            "pool_mib": pool_bytes / 2 ** 20,
+                            "ladder_mib": ladder_bytes / 2 ** 20,
+                            "save_s": save_s, "load_s": load_s}
+    return out
+
+
 def start_server(repo: str, build_dir: str) -> subprocess.Popen:
     """``python -m gameoflifewithactors_torch serve`` on the card, on an
     ephemeral port."""
@@ -1634,6 +1922,8 @@ def main() -> int:
           f"{mesh['life_slab']['launches']} of the slab form on the B3/S23 "
           "mesh path")
     stamp("the serving main path")
+    tiled_phase(cs, card)
+    stamp("the sparse and paged engines")
 
     # -- 4. timing at the main path's shape ------------------------------------
     sms = torch.cuda.get_device_properties(0).multi_processor_count

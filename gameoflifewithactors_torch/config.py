@@ -2,9 +2,10 @@
 
 Counterpart of ``gameoflifewithactors_tpu.config`` for the flags of the
 ported paths: grid, rule (life-like, Generations or Larger than Life),
-topology, seed, backend, steps, rendering, rate, metrics, population, the
-device, the mesh, the generations per halo exchange, checkpoint and
-resume, the PPM and RLE outputs, and ``--list``.
+topology, seed, backend (with the sparse backend's tile and capacity),
+steps, rendering, rate, metrics, population, the device, the mesh, the
+generations per halo exchange, checkpoint and resume, the PPM and RLE
+outputs, and ``--list``.
 ``SimulationConfig.build()`` assembles the mesh, the coordinator (from a
 checkpoint with ``resume``) and the scheduler, so the CLI and library
 users share one construction path.
@@ -31,7 +32,9 @@ class SimulationConfig:
     random_fill: Optional[float] = None     # Bernoulli p (overrides seed)
     seed_origin: Optional[Tuple[int, int]] = None
     rng_seed: int = 0
-    backend: str = "auto"                   # auto | packed | dense | cuda
+    backend: str = "auto"                   # auto | packed | dense | cuda | sparse
+    sparse_tile: Optional[Tuple[int, int]] = None   # (rows, cols), cols % 32 == 0
+    sparse_capacity: Optional[int] = None   # max active tiles before dense fallback
     device: str = "cuda"                    # cuda | cpu
     mesh: Optional[str] = None              # None | "auto" | "bands" | "2x4"
     gens_per_exchange: Optional[int] = None  # band chunk; None: the kernel's
@@ -89,6 +92,22 @@ class SimulationConfig:
             return metrics_lib.MetricsLogger(metrics_lib.CsvSink(f))
         raise ValueError(f"--metrics must be 'jsonl' or 'csv:PATH', got {self.metrics!r}")
 
+    def build_sparse_opts(self) -> Optional[dict]:
+        from .ops import bitpack
+
+        opts = {}
+        if self.sparse_tile is not None:
+            rows, cols = self.sparse_tile
+            if cols % bitpack.WORD:
+                raise ValueError(
+                    f"--sparse-tile columns must be a multiple of {bitpack.WORD}, got {cols}"
+                )
+            opts["tile_rows"] = rows
+            opts["tile_words"] = cols // bitpack.WORD
+        if self.sparse_capacity is not None:
+            opts["capacity"] = self.sparse_capacity
+        return opts or None
+
     def build(self):
         """Construct the (mesh, coordinator, scheduler) stack; with
         ``resume``, the coordinator wraps the checkpoint's engine (its
@@ -132,6 +151,7 @@ class SimulationConfig:
                 view_shape=(self.view_height, self.view_width),
                 mesh=mesh,
                 gens_per_exchange=self.gens_per_exchange,
+                sparse_opts=self.build_sparse_opts(),
             )
         scheduler = TickScheduler(
             coordinator,
@@ -172,7 +192,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed-at", type=_parse_geometry, default=None, metavar="RxC",
                    help="pattern top-left placement (default: centered)")
     p.add_argument("--rng-seed", type=int, default=0)
-    p.add_argument("--backend", choices=["auto", "packed", "dense", "cuda"],
+    p.add_argument("--backend", choices=["auto", "packed", "dense", "cuda", "sparse"],
                    default="auto")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the grid lives and steps (default cuda; cpu "
@@ -186,6 +206,12 @@ def make_parser() -> argparse.ArgumentParser:
                    help="with --mesh and the cuda backend: generations per "
                         "halo exchange and kernel launch, 1..32 (default: "
                         "the rule family's kernel default)")
+    p.add_argument("--sparse-tile", type=_parse_geometry, default=None, metavar="RxC",
+                   help="sparse backend tile size in cells; C %% 32 == 0 "
+                        "(default: auto-scaled so the activity map stays small; "
+                        "32x128 for small grids)")
+    p.add_argument("--sparse-capacity", type=int, default=None, metavar="N",
+                   help="sparse backend: max active tiles per step before dense fallback")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--render", choices=["off", "live", "final"], default="off")
     p.add_argument("--render-every", type=int, default=1, metavar="N",
@@ -236,6 +262,8 @@ def from_args(argv=None) -> "tuple[SimulationConfig, argparse.Namespace]":
         seed_origin=args.seed_at,
         rng_seed=args.rng_seed,
         backend=args.backend,
+        sparse_tile=args.sparse_tile,
+        sparse_capacity=args.sparse_capacity,
         device=args.device,
         mesh=args.mesh,
         gens_per_exchange=args.gens_per_exchange,

@@ -12,7 +12,9 @@ each tick (or every ``render_every`` generations) with a RenderFrame. Any
 rule the Engine takes (life-like, Generations, Larger than Life) passes
 through unchanged; a multi-state frame carries the cells' states. A
 ``mesh`` (and ``gens_per_exchange``) pass through to the Engine, which
-then shards the grid over it.
+then shards the grid over it; ``sparse_opts`` passes through for the
+activity-tiled backends ("sparse", "paged"), whose active tiles a metrics
+record carries.
 """
 
 from __future__ import annotations
@@ -66,13 +68,15 @@ class GridCoordinator:
         view_shape: Optional[Tuple[int, int]] = None,
         mesh=None,
         gens_per_exchange: Optional[int] = None,
+        sparse_opts: Optional[dict] = None,
     ):
         device = placement_device(device, mesh)
         grid = self._build_seed(shape, seed, seed_origin, random_fill,
                                 rng_seed, device)
         engine = Engine(grid, rule, topology=topology, backend=backend,
                         device=device, mesh=mesh,
-                        gens_per_exchange=gens_per_exchange)
+                        gens_per_exchange=gens_per_exchange,
+                        sparse_opts=sparse_opts)
         self._init_from_engine(engine, track_population, metrics, view_shape)
 
     def _init_from_engine(self, engine, track_population, metrics, view_shape) -> None:
@@ -155,6 +159,7 @@ class GridCoordinator:
                     wall_seconds=dt,
                     cell_updates_per_sec=cells / dt,
                     population=self.population() if self.track_population else None,
+                    active_tiles=self.engine.active_tiles(),
                 )
             )
         self._notify()

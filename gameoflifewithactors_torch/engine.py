@@ -9,7 +9,9 @@ stepped by a hand-written CUDA kernel (:mod:`.ops.cuda_stencil`; with a
 mesh the band runners of :mod:`.parallel.sharded`) or by plain PyTorch.
 ``step`` only enqueues work on the current CUDA stream; data comes back to
 the host only when :meth:`Engine.snapshot` or :meth:`Engine.population`
-asks for it.
+asks for it. The activity-tiled backends are the exception: ``"sparse"``
+(:mod:`.ops.sparse`) reads one candidate count per chunk, ``"paged"``
+(:mod:`.memory`) its page flags per chunk, as in the JAX package.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 Without a device and without CUDA, the constructor raises: it never runs
@@ -39,13 +41,14 @@ from .ops.packed_generations import (
     unpack_generations,
 )
 from .ops.packed_ltl import multi_step_ltl_packed, multi_step_ltl_planes
+from .ops.sparse import DEFAULT_TILE_ROWS, DEFAULT_TILE_WORDS, SparseEngineState
 from .ops.stencil import Topology, multi_step
 from .parallel import sharded
 from .parallel.mesh import COL_AXIS, ROW_AXIS, Mesh, device_put_sharded_grid
 from .utils.interop import state_from_numpy
 
-BACKENDS = ("packed", "dense", "cuda")
-_UNPORTED_BACKENDS = ("sparse", "paged")
+BACKENDS = ("packed", "dense", "cuda", "sparse", "paged")
+_TILED_BACKENDS = ("sparse", "paged")
 
 
 def _not_ported(what: str, item: str = "queue A") -> NotImplementedError:
@@ -151,7 +154,11 @@ class Engine:
         not pack), "cuda" (the temporal-blocked Hopper kernel of the
         rule's family), "packed" (32 cells/word SWAR in plain torch; a
         bit-plane stack for multi-state rules) or "dense" (1 byte/cell).
-        With a mesh: "cuda" is the band runner of the rule's family
+        "sparse" (activity-tiled: only the tiles whose neighbourhood
+        changed step, :mod:`.ops.sparse`) and "paged" (page-table grids over
+        a tile pool, :mod:`.memory`) store the packed layout and step it in
+        plain torch; "auto" never picks them. With a mesh: "cuda" is the
+        band runner of the rule's family
         (full-width row bands over the flattened mesh, one slab-kernel
         launch per device and chunk), which "auto" picks on CUDA wherever
         the slab kernel takes the band shape; "packed" and "dense" step 2D
@@ -162,6 +169,9 @@ class Engine:
     gens_per_exchange: with a mesh and backend "cuda", generations per
         chunk (one row exchange and one kernel launch each), 1..32; None is
         the family's kernel default (8 B/S, 16 Generations, 4 LtL).
+    sparse_opts: for "sparse" and "paged", the tiling: ``tile_rows``,
+        ``tile_words``, ``capacity`` and ``chunk_gens`` (the JAX engine's
+        keys and defaults).
     """
 
     def __init__(
@@ -174,14 +184,15 @@ class Engine:
         device=None,
         mesh: Optional[Mesh] = None,
         gens_per_exchange: Optional[int] = None,
+        sparse_opts: Optional[dict] = None,
     ):
         shape = tuple(grid.shape) if isinstance(grid, torch.Tensor) \
             else np.shape(grid)
         if len(shape) != 2:
             raise ValueError(f"grid must be 2D, got shape {shape}")
         self._configure(rule, topology, backend, device, mesh, shape,
-                        gens_per_exchange)
-        self._state = self._place(self._encode(self._cells(grid)))
+                        gens_per_exchange, sparse_opts)
+        self._adopt(self._encode(self._cells(grid)))
 
     @classmethod
     def from_packed(
@@ -193,6 +204,7 @@ class Engine:
         backend: str = "auto",
         device=None,
         mesh: Optional[Mesh] = None,
+        sparse_opts: Optional[dict] = None,
     ) -> "Engine":
         """An engine whose state is the given packed words: a host
         ``(H, W/32)`` uint32 array such as ``np.asarray(jax_engine.state)``,
@@ -209,7 +221,7 @@ class Engine:
         self = cls.__new__(cls)
         h, wp = packed.shape[-2:]
         self._configure(rule, topology, backend, device, mesh,
-                        (h, wp * bitpack.WORD))
+                        (h, wp * bitpack.WORD), sparse_opts=sparse_opts)
         want = n_planes(self._states) if self._states > 2 else None
         have = packed.shape[0] if packed.dim() == 3 else None
         if want != have:
@@ -222,12 +234,13 @@ class Engine:
         if self._layout == "dense":
             packed = unpack_generations(packed) if want else \
                 bitpack.unpack(packed)
-        self._state = self._place(packed)
+        self._adopt(packed)
         return self
 
     def _configure(self, rule, topology: Topology, backend: str, device,
                    mesh: Optional[Mesh], shape: Tuple[int, int],
-                   gens_per_exchange: Optional[int] = None) -> None:
+                   gens_per_exchange: Optional[int] = None,
+                   sparse_opts: Optional[dict] = None) -> None:
         self.rule = parse_any(rule)
         if isinstance(self.rule, ElementaryRule):
             raise ValueError(
@@ -237,11 +250,14 @@ class Engine:
                 f"{self.rule.notation} --render final), or ops.elementary "
                 "directly: multi_step_elementary / evolve_spacetime on a "
                 "packed row (see examples/wolfram.py)")
-        if backend in _UNPORTED_BACKENDS:
-            if mesh is not None:
-                raise _not_ported(f"the sharded {backend!r} backend",
-                                  "A12 (with A9 and A10)")
-            raise _not_ported(f"the {backend!r} backend")
+        if mesh is not None and backend == "paged":
+            raise ValueError(
+                "the paged backend is single-device (its page tables are "
+                "host bookkeeping over one pool slab); use backend="
+                "'sparse' for sharded activity skipping")
+        if mesh is not None and backend == "sparse":
+            raise _not_ported("the sharded 'sparse' backend (the sharded "
+                              "sparse runners)", "A12")
         if backend not in BACKENDS and backend != "auto":
             raise ValueError(
                 f"backend must be 'auto' or one of {BACKENDS}, got {backend!r}")
@@ -301,6 +317,9 @@ class Engine:
             raise ValueError(
                 f"backend 'packed' needs a width that is a multiple of "
                 f"{bitpack.WORD}, got {w}")
+        if backend in _TILED_BACKENDS:
+            self._check_tiled(backend, h, w, packs, sparse_opts)
+        self._sparse_opts = dict(sparse_opts or {})
         self.topology = topology
         self.backend = backend
         self.gens_per_exchange = g if mesh is not None and backend == "cuda" \
@@ -313,6 +332,38 @@ class Engine:
         else:
             self._layout = "planes" if self._states > 2 else "words"
         self._runner = None if mesh is None else self._mesh_runner()
+        self._sparse = None   # the "sparse"/"paged" state, once adopted
+
+    def _check_tiled(self, backend: str, h: int, w: int, packs: bool,
+                     sparse_opts: Optional[dict]) -> None:
+        """The JAX engine's width and tile checks of the activity-tiled
+        backends, in cell units, with its messages."""
+        if not packs:
+            if isinstance(self.rule, GenRule):
+                raise ValueError(
+                    f"the {backend} backend stores Generations universes as "
+                    f"bit-plane stacks: width {w} must shard into whole "
+                    f"32-cell words over 1 mesh column(s) (divisible by "
+                    f"{bitpack.WORD})")
+            if isinstance(self.rule, LtLRule):
+                raise ValueError(
+                    f"{backend} LtL needs a width divisible by "
+                    f"{bitpack.WORD} (32-cell words must shard whole over 1 "
+                    f"mesh column(s)), got {self.rule.notation} on "
+                    f"{(h, w)}; use backend='dense'")
+            raise ValueError(
+                f"backend {backend!r} needs a width that is a multiple of "
+                f"{bitpack.WORD}, got {w}")
+        opts = dict(sparse_opts or {})
+        if backend == "sparse" and ("tile_rows" in opts or "tile_words" in opts):
+            # without explicit tiles SparseEngineState auto-tiles divisibly
+            tr = opts.get("tile_rows", DEFAULT_TILE_ROWS)
+            tw = opts.get("tile_words", DEFAULT_TILE_WORDS)
+            if h % tr or w % (bitpack.WORD * tw):
+                raise ValueError(
+                    f"grid {(h, w)} not divisible into sparse tiles of "
+                    f"{tr} x {bitpack.WORD * tw} cells; pass sparse_opts="
+                    f"dict(tile_rows=..., tile_words=...) that divide it")
 
     def _check_mesh(self, h: int, w: int, backend: str) -> None:
         """The JAX engine's divisibility and radius checks, in cell units,
@@ -425,6 +476,22 @@ class Engine:
             return pack_generations_for(cells, self.rule)
         return bitpack.pack(cells) if self._layout == "words" else cells
 
+    def _adopt(self, state: torch.Tensor) -> None:
+        """Make the encoded ``state`` the engine's: placed on the mesh, or
+        held by the sparse or paged state."""
+        if self.backend == "sparse":
+            self._sparse = SparseEngineState(
+                state, self.rule, topology=self.topology, **self._sparse_opts)
+        elif self.backend == "paged":
+            from .memory import PagedEngineState
+
+            self._sparse = PagedEngineState(
+                state, self.rule, topology=self.topology, **self._sparse_opts)
+        else:
+            self._state = self._place(state)
+            return
+        self._state = None
+
     def _place(self, state: torch.Tensor):
         """The encoded state on the mesh (full-width bands for the band
         runners, 2D tiles otherwise), or as it is without a mesh."""
@@ -469,7 +536,10 @@ class Engine:
             raise ValueError(f"cannot step a negative number of generations: {n}")
         if n == 0:
             return
-        self._state = self._run(self._state, n)
+        if self._sparse is not None:
+            self._sparse.step(n)
+        else:
+            self._state = self._run(self._state, n)
         self.generation += n
 
     def block_until_ready(self) -> None:
@@ -489,9 +559,12 @@ class Engine:
         uint8 cells). A step replaces it; use :meth:`snapshot` for a stable
         host copy. With a mesh, a new tensor gathered from the shards onto
         the mesh's first device (:attr:`sharded_state` is the placed
-        state itself)."""
+        state itself). For "sparse" a view of the padded buffer's interior,
+        for "paged" a new tensor assembled from the pool's pages."""
         if self.mesh is not None:
             return self._state.gather()
+        if self._sparse is not None:
+            return self._sparse.packed
         return self._state
 
     @property
@@ -523,7 +596,7 @@ class Engine:
         but are not population. With a mesh, each position's block is
         counted on its own device."""
         if self.mesh is None:
-            return self._population(self._state)
+            return self._population(self.state)
         return sum(self._population(block) for block in self._state.blocks())
 
     def _population(self, state: torch.Tensor) -> int:
@@ -533,10 +606,23 @@ class Engine:
             return bitpack.population(state)
         return int((state == 1).sum(dtype=torch.int64))
 
+    def active_tiles(self) -> Optional[int]:
+        """The "sparse" backend's changed tiles (its activity map's count)
+        or the pages the "paged" backend holds; None for the other
+        backends."""
+        if self._sparse is None:
+            return None
+        return self._sparse.active_tiles()
+
     # -- state injection -----------------------------------------------------
 
     def set_grid(self, grid, generation: Optional[int] = None) -> None:
-        self._state = self._place(self._encode(self._cells(grid)))
+        state = self._encode(self._cells(grid))
+        if self._sparse is not None:
+            # the same configuration, adaptive capacity included
+            self._sparse = self._sparse.reseed(state)
+        else:
+            self._state = self._place(state)
         if generation is not None:
             self.generation = generation
 

@@ -166,11 +166,12 @@ def _step_plane_list(plist, rule: GenRule, topology: Topology):
 
 
 def step_planes_ext(ext_list, rule: GenRule):
-    """One generation from b halo-extended (h+2, wp+2) planes -> interior
-    (h, wp) plane tuple. Halos come from the caller."""
+    """One generation from b halo-extended (..., h+2, wp+2) planes ->
+    interior (..., h, wp) plane tuple (leading dimensions are a batch).
+    Halos come from the caller."""
     alive_ext = _alive_of(ext_list)
     center, bits = count_bits_ext(alive_ext)  # center = interior alive
-    interior = tuple(p[1:-1, 1:-1] for p in ext_list)
+    interior = tuple(p[..., 1:-1, 1:-1] for p in ext_list)
     return _transition(interior, center, bits, rule)
 
 

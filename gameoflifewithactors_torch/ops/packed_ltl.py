@@ -332,15 +332,16 @@ def step_ltl_packed_slab(slab: torch.Tensor, rule: LtLRule,
 def step_ltl_packed_ext(ext: torch.Tensor, rule: LtLRule) -> torch.Tensor:
     """One generation from a halo-extended packed tile -> (h, wp) interior.
 
-    ``ext`` is (h + 2r, wp + 2): r halo *rows* top/bottom and one halo
-    *word* (32 >= r cells) left/right, materialised by the caller. Counts
+    ``ext`` is (..., h + 2r, wp + 2): r halo *rows* top/bottom and one halo
+    *word* (32 >= r cells) left/right, materialised by the caller (leading
+    dimensions are a batch). Counts
     use DEAD closure on the tile — every interior cell's neighbourhood
     lies inside it."""
     _require_binary(rule)
     r = rule.radius
-    counts = [c[r:-r, 1:-1] for c in neighborhood_counts_packed(
+    counts = [c[..., r:-r, 1:-1] for c in neighborhood_counts_packed(
         ext, rule, Topology.DEAD, Topology.DEAD)]
-    return _apply_intervals(ext[r:-r, 1:-1], counts, rule)
+    return _apply_intervals(ext[..., r:-r, 1:-1], counts, rule)
 
 
 def multi_step_ltl_packed(
@@ -413,19 +414,19 @@ def step_ltl_planes_slab(plist, rule: LtLRule, topology: Topology):
 
 
 def step_ltl_planes_ext(ext_list, rule: LtLRule):
-    """One generation from b halo-extended (h + 2r, wp + 2) planes ->
-    interior (h, wp) plane tuple — r halo rows and one halo word per side,
+    """One generation from b halo-extended (..., h + 2r, wp + 2) planes ->
+    interior (..., h, wp) plane tuple — r halo rows and one halo word per side,
     same contract as :func:`step_ltl_packed_ext`."""
     from .packed_generations import _alive_of, transition_planes
 
     _require_multistate(rule)
     r = rule.radius
     alive_ext = _alive_of(ext_list)
-    counts = [c[r:-r, 1:-1] for c in neighborhood_counts_packed(
+    counts = [c[..., r:-r, 1:-1] for c in neighborhood_counts_packed(
         alive_ext, rule, Topology.DEAD, Topology.DEAD)]
-    interior = tuple(p[r:-r, 1:-1] for p in ext_list)
-    born_p, keep_p = _interval_masks(alive_ext[r:-r, 1:-1], counts, rule)
-    return transition_planes(interior, alive_ext[r:-r, 1:-1], born_p,
+    interior = tuple(p[..., r:-r, 1:-1] for p in ext_list)
+    born_p, keep_p = _interval_masks(alive_ext[..., r:-r, 1:-1], counts, rule)
+    return transition_planes(interior, alive_ext[..., r:-r, 1:-1], born_p,
                              keep_p, rule.states)
 
 

@@ -17,12 +17,16 @@ the slots that owe no generations.
   beyond each universe from the universe itself and copies the frozen
   ones; for a CPU tensor its plain version, the JAX runner's chunk: a
   depth-``g`` row exchange, the slab step, a crop of ``g`` rows per side
-  and the mask's select. The paged runner waits for ROADMAP A10.
+  and the mask's select.
+- :func:`make_multi_step_paged` — the paged tile pool's runner
+  (:mod:`..memory`): a batch of physical tiles whose halos are gathered
+  through a ``(B, 8)`` neighbour-slot table, plain torch (the JAX runner
+  is XLA's gather and step; no TPU kernel serves it).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -114,3 +118,90 @@ def make_multi_step_kernel_batched(
     if masked:
         return lambda grids, chunks, mask: run(grids, chunks, mask)
     return lambda grids, chunks: run(grids, chunks)
+
+
+# the paged runner's neighbour-gather order: the 8 tile neighbours of a
+# pool slot, row-major. OPPOSITE[i] == 7 - i (the reciprocal direction):
+# memory/paged.py leans on that symmetry when it back-links a freshly
+# allocated page into its neighbours' rows.
+PAGED_NEIGHBORS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
+                   (0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def make_multi_step_paged(rule, tile_rows: Optional[int] = None,
+                          tile_words: Optional[int] = None) -> Callable:
+    """The paged tile-pool runner: ``(tiles, n, neighbors, mask) -> (tiles,
+    changed, occupied)``, stepping one batch of physical tiles per
+    generation whichever logical grid owns them.
+
+    - ``tiles`` is the pool's ``(B, planes, tile_rows, tile_words)`` int32
+      slab (planes = ``ops.sparse.rule_layout(rule)[0]``), advanced in
+      place and returned. Slot 0 is the dead tile: all zero, never masked
+      live.
+    - ``neighbors`` is the page tables' ``(B, 8)`` slot ids in
+      :data:`PAGED_NEIGHBORS` order (host array or tensor). Each tile's
+      halo is gathered from its 8 neighbours' edges; a missing page points
+      at slot 0, whose zeros are the DEAD closure, and a TORUS grid wraps
+      its coordinates when it builds the table.
+    - ``mask`` is the ``(B,)`` occupancy vector: only the masked slots
+      step (the JAX runner steps every slot and selects; the results and
+      flags are the same), the others pass through bit for bit.
+
+    Returns the slab and two ``(B,)`` bool tensors on its device:
+    ``changed`` (the slot differed from its input at ANY generation: the
+    wake flag) and ``occupied`` (the slot holds a live bit at exit)."""
+    from ..ops import sparse as _sp
+
+    tile_rows = int(tile_rows or _sp.DEFAULT_TILE_ROWS)
+    tile_words = int(tile_words or _sp.DEFAULT_TILE_WORDS)
+    _, ndim = _sp.rule_layout(rule)
+    r, rw = _sp.rule_halo(rule)
+    if r > tile_rows or rw > tile_words:
+        raise ValueError(
+            f"rule halo ({r} rows, {rw} words) exceeds the slab geometry "
+            f"({tile_rows} rows, {tile_words} words): a neighbor gather "
+            "can reach one tile ring, no further — grow the slab")
+    ext_step = _sp._step_fns(rule, ndim == 3)[0]
+
+    def window(t, nb9):
+        # the centre tile (column 4 of nb9) and its 8 neighbours, gathered
+        # whole, then cut to their edge strips around the centre
+        g = t[nb9]                                   # (M, 9, P, tr, tw)
+        top = torch.cat([g[:, 0, ..., -r:, -rw:], g[:, 1, ..., -r:, :],
+                         g[:, 2, ..., -r:, :rw]], dim=-1)
+        mid = torch.cat([g[:, 3, ..., -rw:], g[:, 4], g[:, 5, ..., :rw]],
+                        dim=-1)
+        bot = torch.cat([g[:, 6, ..., :r, -rw:], g[:, 7, ..., :r, :],
+                         g[:, 8, ..., :r, :rw]], dim=-1)
+        return torch.cat([top, mid, bot], dim=-2)
+
+    def gen(t, nb9):
+        w = window(t, nb9)
+        if ndim == 2:
+            return ext_step(w[:, 0])[:, None]
+        return ext_step(w.transpose(0, 1)).transpose(0, 1)
+
+    def run(tiles: torch.Tensor, n: int, neighbors, mask):
+        dev = tiles.device
+        sel = np.flatnonzero(_host(mask))
+        changed = torch.zeros(tiles.shape[0], dtype=torch.bool, device=dev)
+        if len(sel) and int(n) > 0:
+            nb = _host(neighbors)[sel]
+            nb9 = torch.from_numpy(np.concatenate(
+                [nb[:, :4], sel[:, None], nb[:, 4:]], axis=1).astype(np.int64)
+            ).to(dev)
+            idx = nb9[:, 4]
+            ch = torch.zeros(len(sel), dtype=torch.bool, device=dev)
+            for _ in range(int(n)):
+                out = gen(tiles, nb9)
+                ch |= (out != tiles[idx]).flatten(1).any(1)
+                tiles[idx] = out
+            changed[idx] = ch
+        occupied = (tiles != 0).flatten(1).any(1)
+        return tiles, changed, occupied
+
+    return run

@@ -33,7 +33,8 @@ takes it and a number of generations and returns the stepped grid.
   halo word per side per chunk of ``g`` generations.
 
 Not ported (ROADMAP A12): the communication-avoiding deep and ghost-zone
-packed runners and the sharded sparse runners (with A9).
+packed runners and the sharded sparse runners (the single-device sparse
+engine is :mod:`..ops.sparse`).
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """serve/: the multi-tenant session service.
 
-Counterpart of ``gameoflifewithactors_tpu.serve`` on the capacity ladder:
-many logical sessions — tenant-owned live grids — multiplexed onto few
-batched lanes on the card.
+Counterpart of ``gameoflifewithactors_tpu.serve``: many logical sessions
+— tenant-owned live grids — multiplexed onto few batched lanes on the
+card (the capacity ladder) or onto a shared tile pool (paged lanes).
 
 - :mod:`.session` — Session/SessionStore (identity, lifecycle, cursor);
 - :mod:`.lanes` — ladder-capacity batched lanes on the masked batched
-  runners, kernel B2 on ``"cuda"`` lanes;
+  runners, kernel B2 on ``"cuda"`` lanes; paged lanes on
+  :mod:`..memory`'s tile pool;
 - :mod:`.admission` — HBM-gauge-priced admission control with a bounded
   backpressure queue;
 - :mod:`.service` — the orchestrator (pump, checkpoint/resume, lane

@@ -1,7 +1,7 @@
 """Lanes: few physical executors for many logical sessions.
 
-Counterpart of ``gameoflifewithactors_tpu.serve.lanes`` for the capacity
-ladder (paged lanes wait for ROADMAP A10). A lane is one batched dispatch
+Counterpart of ``gameoflifewithactors_tpu.serve.lanes``: the capacity
+ladder and the paged lanes (:class:`PagedLanePool`). A lane is one batched dispatch
 surface: a ``(capacity, H, W/32)`` int32 batch of packed words driven by
 a masked batched runner (:mod:`..parallel.batched`). Sessions of the same
 :class:`SpecFamily` (rule × shape × topology × backend) share lanes; each
@@ -31,6 +31,14 @@ no generations.
 
 The per-lane memory model admission control prices against is
 :meth:`SpecFamily.slot_bytes` × capacity, as in the JAX package.
+
+- **Paged lanes** (:class:`PagedLane`, :class:`PagedLanePool`): the
+  sessions of a family live as page-table grids on one shared
+  :class:`..memory.TilePool` per rule, so a session costs the tiles it
+  occupies instead of a dense slot, and every geometry of the rule
+  dispatches through the pool's one runner. The ladder collapses to one
+  elastic lane; pool pressure replaces growth and compaction as the
+  scheduling signal.
 """
 
 from __future__ import annotations
@@ -359,11 +367,217 @@ class LanePool:
 
     # -- admission pricing ----------------------------------------------------
 
-    def admission_cost(self) -> int:
+    def admission_cost(self, words=None) -> int:
         """Modelled bytes one create claims: a full dense slot, whatever
         the seed looks like."""
         return self.family.slot_bytes()
 
+    def pool_pressure(self, words=None):
+        """(tiles needed, tiles free) for pool-backed placement; None for
+        the ladder, which has no fixed physical budget to starve."""
+        return None
+
     def bytes_held(self) -> int:
         """Modelled device bytes this family's lanes hold."""
         return self.total_capacity() * self.family.slot_bytes()
+
+
+# -- paged lanes: the ladder, collapsed ---------------------------------------
+
+
+def paged_lane_runner(rule, tile_rows: int, tile_words: int) -> Callable:
+    """The paged pool runner for a rule at a slab geometry: plain torch
+    with nothing to build or trace, so every pool makes its own (the JAX
+    package caches its compiled runner by (rule, tile_rows,
+    tile_words))."""
+    return batched.make_multi_step_paged(rule, int(tile_rows), int(tile_words))
+
+
+class PagedLane:
+    """One dispatch surface of page-table grids, the paged duck-type of
+    :class:`Lane`. Slots grow on demand; :meth:`step` returns per-slot
+    generations completed, short of ``n`` only for slots the tile pool
+    could not provision mid-flight."""
+
+    def __init__(self, lane_id: str, family: SpecFamily, tile_pool,
+                 chunk_gens: Optional[int] = None):
+        trc, _ = tile_pool.tile_cells()
+        if family.height % trc or family.wq % tile_pool.tile_words:
+            raise ValueError(
+                f"family {family.key} ({family.height} x {family.wq} words) "
+                f"does not divide into the pool's {trc}-row x "
+                f"{tile_pool.tile_words}-word tiles")
+        self.lane_id = lane_id
+        self.family = family
+        self.pool = tile_pool
+        self.bounds = (family.height // trc,
+                       family.wq // tile_pool.tile_words)
+        self.chunk_gens = chunk_gens
+        self.slots: List[Optional[str]] = []
+        self.grids: List[Optional[object]] = []
+        self.steps_dispatched = 0
+        self.fail_next = False  # same injected-crash seam as Lane
+
+    @property
+    def capacity(self) -> int:
+        return len(self.slots)
+
+    def live_count(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    def free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def place(self, sid: str, words: np.ndarray) -> int:
+        from ..memory import PagedGrid
+
+        grid = PagedGrid(self.pool, topology=self.family.topology,
+                         bounds=self.bounds)
+        try:
+            grid.seed_words(np.asarray(words, np.uint32)[None])
+        except Exception:
+            grid.drop()  # release any pages bound before exhaustion
+            raise
+        slot = self.free_slot()
+        if slot is None:
+            self.slots.append(sid)
+            self.grids.append(grid)
+            return len(self.slots) - 1
+        self.slots[slot] = sid
+        self.grids[slot] = grid
+        return slot
+
+    def release(self, slot: int) -> None:
+        grid = self.grids[slot]
+        if grid is not None:
+            grid.drop()
+        self.slots[slot] = None
+        self.grids[slot] = None
+
+    def read(self, slot: int) -> np.ndarray:
+        """The slot's words as a new host ``'<u4'`` array."""
+        return self.grids[slot].to_words()[0]
+
+    def write(self, slot: int, words: np.ndarray) -> None:
+        grid = self.grids[slot]
+        grid.drop()
+        grid.seed_words(np.asarray(words, np.uint32)[None])
+
+    def step(self, n: int, mask: np.ndarray) -> np.ndarray:
+        """Advance masked slots ``n`` generations; returns (capacity,)
+        int64 generations completed per slot (pool exhaustion stalls a
+        slot partway; co-tenants still finish)."""
+        from ..memory import step_grids
+
+        if self.fail_next:
+            self.fail_next = False
+            raise RuntimeError(f"injected lane fault ({self.lane_id})")
+        done = np.zeros((self.capacity,), np.int64)
+        idx = [i for i, sid in enumerate(self.slots)
+               if sid is not None and i < len(mask) and mask[i]]
+        with obs_spans.span("engine.step", generations=int(n),
+                            lane=self.lane_id, capacity=self.capacity):
+            if idx:
+                out = step_grids(self.pool, [self.grids[i] for i in idx],
+                                 int(n), self.chunk_gens)
+                for j, i in enumerate(idx):
+                    done[i] = out[j]
+        self.steps_dispatched += int(n)
+        return done
+
+    def stats(self) -> dict:
+        return {"lane": self.lane_id, "family": self.family.key,
+                "capacity": self.capacity, "live": self.live_count(),
+                "paged": True, "tiles": sum(
+                    len(g.pages) for g in self.grids if g is not None)}
+
+
+# a nominal average session footprint (tiles) for mapping ladder configs
+# onto pool capacity -- see pool_capacity_for_ladder
+TILES_PER_SLOT = 8
+
+
+def pool_capacity_for_ladder(ladder: Tuple[int, ...] = LANE_LADDER,
+                             tiles_per_slot: int = TILES_PER_SLOT) -> int:
+    """Map a lane-ladder config onto tile-pool capacity: the ladder's
+    nominal fleet (8 top-rung lanes) times a nominal per-session footprint
+    of ``tiles_per_slot`` tiles, plus the reserved dead slot. An explicit
+    ``paged_opts['capacity']`` overrides this entirely."""
+    top = max(int(c) for c in ladder)
+    return 1 + 8 * int(tiles_per_slot) * top
+
+
+class PagedLanePool:
+    """All paged sessions of one family over the shared tile pool: the
+    :class:`LanePool` duck-type with the ladder collapsed to one elastic
+    lane. ``compact`` is a no-op (a free-list pool is always compact;
+    nothing moves)."""
+
+    def __init__(self, family: SpecFamily, *, tile_pool,
+                 chunk_gens: Optional[int] = None):
+        self.family = family
+        self.tile_pool = tile_pool
+        self.chunk_gens = chunk_gens
+        self.lanes: Dict[str, PagedLane] = {}
+        self.warmed = False
+
+    def _lane(self) -> PagedLane:
+        if not self.lanes:
+            lane = PagedLane(f"{self.family.key}#paged", self.family,
+                             self.tile_pool, self.chunk_gens)
+            self.lanes[lane.lane_id] = lane
+        return next(iter(self.lanes.values()))
+
+    def total_capacity(self) -> int:
+        return sum(lane.capacity for lane in self.lanes.values())
+
+    def live_count(self) -> int:
+        return sum(lane.live_count() for lane in self.lanes.values())
+
+    def warm(self) -> None:
+        if not self.warmed:
+            self.tile_pool.warm()
+            self.warmed = True
+
+    def place(self, sid: str, words: np.ndarray) -> Tuple[str, int, dict]:
+        lane = self._lane()
+        slot = lane.place(sid, words)  # PoolExhausted propagates
+        return lane.lane_id, slot, {}
+
+    def release(self, lane_id: str, slot: int) -> None:
+        self.lanes[lane_id].release(slot)
+
+    def compact(self) -> dict:
+        return {}
+
+    def stats(self) -> List[dict]:
+        return [lane.stats() for lane in self.lanes.values()]
+
+    # -- admission pricing ----------------------------------------------------
+
+    def tiles_needed(self, words: Optional[np.ndarray]) -> int:
+        """Tiles a seed binds NOW: its nonzero tiles (the dead majority
+        stays aliased to the pool's dead slot; wake rings bind lazily at
+        the first step and retire behind the front)."""
+        if words is None:
+            return 0
+        trc, _ = self.tile_pool.tile_cells()
+        tw = self.tile_pool.tile_words
+        nty, ntx = self.family.height // trc, self.family.wq // tw
+        w = np.asarray(words).reshape(nty, trc, ntx, tw)
+        return int(w.any(axis=(1, 3)).sum())
+
+    def admission_cost(self, words=None) -> int:
+        return self.tiles_needed(words) * self.tile_pool.tile_bytes()
+
+    def pool_pressure(self, words=None):
+        return (self.tiles_needed(words), self.tile_pool.free_count())
+
+    def bytes_held(self) -> int:
+        """Device bytes of the tiles this family's sessions hold."""
+        tiles = sum(len(g.pages) for lane in self.lanes.values()
+                    for g in lane.grids if g is not None)
+        return tiles * self.tile_pool.tile_bytes()

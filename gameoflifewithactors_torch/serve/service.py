@@ -1,7 +1,9 @@
 """SessionService: sessions × lanes × admission, behind one lock.
 
-Counterpart of ``gameoflifewithactors_tpu.serve.service`` on the
-capacity ladder (``paged=True`` waits for ROADMAP A10). The frontend
+Counterpart of ``gameoflifewithactors_tpu.serve.service``, on the
+capacity ladder or, with ``paged=True``, on a shared tile pool per rule
+(:class:`.lanes.PagedLanePool`) for the families whose shape divides the
+pool's tiles. The frontend
 (:mod:`.frontend`) translates HTTP to these methods; tests drive them
 directly. Responsibilities:
 
@@ -30,8 +32,11 @@ directly. Responsibilities:
   a never-faulted run. A lane whose circuit opens evicts its sessions
   instead of wedging the whole service. No dispatch switches backend.
 
-Sessions' lanes live on the service's ``device`` (CUDA unless the caller
-asks for the CPU).
+Sessions' lanes (and tile pools) live on the service's ``device`` (CUDA
+unless the caller asks for the CPU). A paged service serves an ``"auto"``
+spec on the tile pool wherever its shape divides the tiles, as the JAX
+package's ``"auto"`` (always ``"packed"``) does; elsewhere ``"auto"``
+resolves as on the ladder.
 
 Locking: one re-entrant service lock around anything that touches lanes
 or session placement. The store and registry have their own fine-grained
@@ -49,13 +54,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..engine import resolve_device
+from ..memory import PoolExhausted, TilePool
 from ..obs import flight as obs_flight
 from ..obs import spans as obs_spans
 from ..obs.registry import REGISTRY, MetricsRegistry
 from ..ops import bitpack
 from ..resilience.supervisor import RestartPolicy
 from .admission import QUEUE, REJECT, AdmissionController, AdmissionRejected
-from .lanes import LANE_LADDER, LanePool, SpecFamily
+from .lanes import (LANE_LADDER, LanePool, PagedLanePool, SpecFamily,
+                    paged_lane_runner, pool_capacity_for_ladder)
 from .session import (CLOSED, DEAD_STATES, EVICTED, PACKED, PENDING,
                       RUNNING, Session, SessionStore)
 
@@ -89,15 +96,25 @@ class SessionService:
                  policy: Optional[RestartPolicy] = None,
                  warm_on_first_use: bool = True,
                  paged: bool = False,
+                 paged_opts: Optional[dict] = None,
                  sleep_fn=time.sleep,
                  device=None):
-        if paged:
-            raise NotImplementedError(
-                "paged lanes (a shared tile pool) are not yet ported to "
-                "gameoflifewithactors_torch (see ROADMAP.md queue A10)")
         self.device = resolve_device(device)
         self.ladder = tuple(sorted(set(int(c) for c in ladder)))
         self.registry = registry
+        # paged serving: families whose shapes divide the slab geometry
+        # page onto a shared TilePool per rule instead of the ladder;
+        # other shapes keep ladder lanes. Without an explicit capacity the
+        # ladder sizes the pool (pool_capacity_for_ladder).
+        self.paged = bool(paged)
+        _popts = dict(paged_opts or {})
+        self._paged_tile_rows = int(_popts.pop("tile_rows", 16))
+        self._paged_tile_words = int(_popts.pop("tile_words", 1))
+        self._paged_capacity = _popts.pop("capacity", None)
+        self._paged_chunk = _popts.pop("chunk_gens", None)
+        if _popts:
+            raise ValueError(f"unknown paged_opts: {sorted(_popts)}")
+        self._tile_pools: Dict[tuple, TilePool] = {}
         self.admission = admission or AdmissionController(registry=registry)
         self.checkpoint_path = checkpoint_path
         self.policy = policy or RestartPolicy()
@@ -162,16 +179,49 @@ class SessionService:
         return family.key
 
     def _family(self, spec: dict) -> SpecFamily:
+        if self.paged and dict(spec).get("backend", "auto") == "auto":
+            packed = SpecFamily.from_spec(dict(spec, backend="packed"),
+                                          self.device)
+            if self._paged_serveable(packed):
+                return packed
         return SpecFamily.from_spec(spec, self.device)
 
-    def _pool(self, family: SpecFamily) -> LanePool:
+    def _pool(self, family: SpecFamily):
         pool = self.pools.get(family.key)
         if pool is None:
-            pool = self.pools[family.key] = LanePool(family, self.ladder,
-                                                     self.device)
+            pool = self.pools[family.key] = self._new_pool(family)
             if self.warm_on_first_use:
                 pool.warm()
         return pool
+
+    def _new_pool(self, family: SpecFamily):
+        if self.paged and self._paged_serveable(family):
+            return PagedLanePool(family, tile_pool=self._tile_pool(family.rule),
+                                 chunk_gens=self._paged_chunk)
+        return LanePool(family, self.ladder, self.device)
+
+    def _paged_serveable(self, family: SpecFamily) -> bool:
+        return (family.backend == "packed"
+                and family.height % self._paged_tile_rows == 0
+                and family.wq % self._paged_tile_words == 0)
+
+    def _tile_pool(self, rule) -> TilePool:
+        """The shared per-rule tile pool: every family of this rule,
+        whatever its logical geometry, pages onto the same slab."""
+        key = (rule.notation, self._paged_tile_rows, self._paged_tile_words)
+        tp = self._tile_pools.get(key)
+        if tp is None:
+            capacity = self._paged_capacity or pool_capacity_for_ladder(
+                self.ladder)
+            tp = self._tile_pools[key] = TilePool(
+                rule, int(capacity),
+                tile_rows=self._paged_tile_rows,
+                tile_words=self._paged_tile_words,
+                name=f"serve:{rule.notation}", registry=self.registry,
+                runner=paged_lane_runner(rule, self._paged_tile_rows,
+                                         self._paged_tile_words),
+                device=self.device)
+        return tp
 
     # -- the session API -----------------------------------------------------
 
@@ -190,8 +240,15 @@ class SessionService:
             t_adm = time.perf_counter()
             with obs_spans.span("serve.admission", tenant=tenant,
                                 family=family.key):
-                verdict = self.admission.decide(pool.admission_cost(),
-                                                tenant=tenant)
+                pressure = pool.pool_pressure(words)
+                if pressure is None:
+                    verdict = self.admission.decide(
+                        pool.admission_cost(words), tenant=tenant)
+                else:
+                    needed, free = pressure
+                    verdict = self.admission.decide(
+                        pool.admission_cost(words), tenant=tenant,
+                        pool_needed=needed, pool_free=free)
             self._m_phase.observe(time.perf_counter() - t_adm,
                                   phase="admission", tenant=tenant)
             if verdict == REJECT:
@@ -208,7 +265,19 @@ class SessionService:
                 s.parked = words
                 self.admission.enqueue(sid, time.perf_counter())
             else:
-                self._place(pool, s, words)
+                try:
+                    self._place(pool, s, words)
+                except PoolExhausted:
+                    # ring tiles bound since pricing beat the admission
+                    # estimate: park rather than raise (pool OOM is a
+                    # scheduling verdict, not an error)
+                    try:
+                        s.parked = words
+                        self.admission.enqueue(sid, time.perf_counter())
+                    except AdmissionRejected:
+                        s.parked = None
+                        s.transition(CLOSED)
+                        raise
             self._refresh_gauges()
             return self._info(s)
 
@@ -286,11 +355,15 @@ class SessionService:
 
     def _pump_lane(self, pool: LanePool, lane) -> int:
         dispatches = 0
+        # sessions a paged dispatch could not fully provision (pool
+        # pressure): their remaining debt stays booked but is ignored for
+        # the rest of THIS pump; closes and retirement free tiles first
+        stalled: set = set()
         while True:
             pend = np.zeros(lane.capacity, dtype=np.int64)
             holders: List[Optional[Session]] = [None] * lane.capacity
             for i, sid in enumerate(lane.slots):
-                if sid is not None:
+                if sid is not None and sid not in stalled:
                     s = self.store.get(sid)
                     holders[i] = s
                     pend[i] = s.pending_steps
@@ -303,7 +376,9 @@ class SessionService:
                                     family=pool.family.key,
                                     generations=n,
                                     slots=int(active.sum())):
-                    lane.step(n, active.astype(np.uint32))
+                    # ladder lanes return None (all or nothing); paged
+                    # lanes return per-slot generations completed
+                    stepped = lane.step(n, active.astype(np.uint32))
             except Exception as exc:  # noqa: BLE001 — restart is the point
                 if not self._recover_lane(pool, lane, exc):
                     return dispatches  # circuit opened; lane is gone
@@ -313,17 +388,22 @@ class SessionService:
             self._lane_failures.pop(lane.lane_id, None)
             for i, s in enumerate(holders):
                 if s is not None and active[i]:
-                    s.generation += n
-                    s.pending_steps -= n
-                    if s.state == PACKED:
-                        s.transition(RUNNING)
-                    self._m_steps.inc(n, tenant=s.tenant)
-                    self._tenant_steps[s.tenant] = \
-                        self._tenant_steps.get(s.tenant, 0.0) + n
-                    t0 = self._first_step_t0.pop(s.sid, None)
-                    if t0 is not None:
-                        self._m_phase.observe(now - t0, phase="first_step",
-                                              tenant=s.tenant)
+                    done = n if stepped is None else int(stepped[i])
+                    if done:
+                        s.generation += done
+                        s.pending_steps -= done
+                        if s.state == PACKED:
+                            s.transition(RUNNING)
+                        self._m_steps.inc(done, tenant=s.tenant)
+                        self._tenant_steps[s.tenant] = \
+                            self._tenant_steps.get(s.tenant, 0.0) + done
+                        t0 = self._first_step_t0.pop(s.sid, None)
+                        if t0 is not None:
+                            self._m_phase.observe(now - t0,
+                                                  phase="first_step",
+                                                  tenant=s.tenant)
+                    if done < n:
+                        stalled.add(s.sid)
 
     # -- lane recovery -------------------------------------------------------
 
@@ -521,14 +601,32 @@ class SessionService:
             s = self.store.maybe(sid)
             if s is None:
                 return 0
-            return self.pools[s.family_key].admission_cost()
+            return self.pools[s.family_key].admission_cost(s.parked)
 
-        for sid in self.admission.drain(cost, time.perf_counter()):
+        def fits(sid: str) -> bool:
+            s = self.store.maybe(sid)
+            if s is None or s.state != PENDING:
+                return True  # let drain pop it; the loop below skips it
+            pressure = self.pools[s.family_key].pool_pressure(s.parked)
+            if pressure is None:
+                return True
+            needed, free = pressure
+            return needed <= free
+
+        for sid in self.admission.drain(cost, time.perf_counter(),
+                                        fit_fn=fits):
             s = self.store.maybe(sid)
             if s is None or s.state != PENDING:
                 continue  # closed (or evicted) while parked
             words, s.parked = s.parked, None
-            self._place(self.pools[s.family_key], s, words)
+            try:
+                self._place(self.pools[s.family_key], s, words)
+            except PoolExhausted:
+                # the fit check raced an allocation: re-park and stop
+                # draining until tiles actually free up
+                s.parked = words
+                self.admission.enqueue(s.sid, time.perf_counter())
+                break
 
     def _words_of(self, s: Session) -> np.ndarray:
         if s.placement() is not None:

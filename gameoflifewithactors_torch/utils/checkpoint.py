@@ -27,8 +27,10 @@ Any unreadable checkpoint -- truncated zip, corrupt member, bad metadata
 raw ``zipfile``/``zlib`` traceback, so recovery layers can treat
 "checkpoint rotted" as a routine fall-back-to-previous event.
 
-Not ported yet: the paged form (:func:`save_paged` / :func:`load_paged`),
-which comes with the paged tile pool (ROADMAP A10).
+The paged form (:func:`save_paged` / :func:`load_paged`, format
+``"paged1"``) stores a paged grid's bound pages: their tile coordinates
+and words, never a dense detour. Slot ids follow the JAX package's
+allocator, so a file either package writes loads in the other.
 """
 
 from __future__ import annotations
@@ -45,13 +47,13 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..engine import Engine, _not_ported
+from ..engine import Engine
 from ..models.generations import parse_any
 from ..ops import bitpack
 from ..ops.packed_generations import unpack_generations_np
 from ..ops.stencil import Topology
 from ..parallel.mesh import Mesh
-from .interop import state_to_numpy
+from .interop import paged_grid_from_numpy, state_to_numpy
 
 FORMAT_VERSION = 3  # v3 adds device-layout checkpoints (no dense detour)
 _READABLE_VERSIONS = (1, 2, 3)  # older files load unchanged
@@ -226,16 +228,81 @@ PAGED_FORMAT = "paged1"
 
 
 def save_paged(grid, path: "str | Path") -> Path:
-    """The paged grid's sparse checkpoint (JAX ``save_paged``): waits for
-    the paged tile pool."""
-    raise _not_ported("the paged checkpoint (save_paged, 'paged1')", "A10")
+    """Checkpoint a paged grid (:mod:`..memory.paged`) in its sparse form:
+    the bound pages' coordinates and tile words, never a dense detour (an
+    unbounded glider a million tiles out saves as its handful of pages).
+    Accepts a :class:`~..memory.PagedGrid` or anything carrying one as
+    ``.grid`` (:class:`~..memory.PagedUniverse`). Crash-safe like
+    :func:`save`; the file is the JAX package's ``paged1``."""
+    grid = getattr(grid, "grid", grid)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    pool = grid.pool
+    host = pool.tiles_host()
+    coords = sorted(grid.pages)
+    tiles = (np.stack([host[grid.pages[c]] for c in coords])
+             if coords else
+             np.zeros((0, pool.planes, pool.tile_rows, pool.tile_words),
+                      np.uint32))
+    meta = dict(
+        format=PAGED_FORMAT,
+        rule=pool.rule.notation,
+        topology=grid.topology.value,
+        bounds=list(grid.bounds) if grid.bounds is not None else None,
+        planes=pool.planes,
+        tile_rows=pool.tile_rows,
+        tile_words=pool.tile_words,
+        generation=grid.generation,
+        active=sorted([int(y), int(x)] for y, x in grid.active),
+    )
+    _write_atomically(path, lambda f: np.savez_compressed(
+        f, coords=np.asarray(coords, np.int64).reshape(-1, 2),
+        tiles=tiles, meta=json.dumps(meta)))
+    return path
 
 
 def load_paged(path: "str | Path", *, pool=None,
-               capacity: Optional[int] = None, registry=None):
-    """Rebuild a paged grid from a ``save_paged`` file (JAX
-    ``load_paged``): waits for the paged tile pool."""
-    raise _not_ported("the paged checkpoint (load_paged, 'paged1')", "A10")
+               capacity: Optional[int] = None, registry=None, device=None):
+    """Rebuild a paged grid bit-exactly from a :func:`save_paged` file
+    (either package's): returns ``(grid, meta)``. Pages re-allocate into
+    ``pool`` (which must match the checkpoint's slab geometry) or into a
+    fresh pool on ``device`` (``"cuda"`` unless the caller asks for the
+    CPU) sized ``capacity`` (default: twice the page count plus one, at
+    least 16). Unreadable files raise :class:`CheckpointCorruptError`."""
+    path = Path(path)
+    with _unreadable_as_corrupt(path):
+        with np.load(path, allow_pickle=False) as z:
+            if "meta" not in z:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path} has no 'meta' member — not a "
+                    "goltpu checkpoint or a torn write")
+            meta = json.loads(str(z["meta"]))
+            if meta.get("format") != PAGED_FORMAT:
+                raise CheckpointCorruptError(
+                    f"{path} is not a paged checkpoint "
+                    f"(format={meta.get('format')!r})")
+            coords = np.asarray(z["coords"], np.int64)
+            tiles = np.asarray(z["tiles"], np.uint32)
+            if tiles.shape != (len(coords), meta["planes"],
+                               meta["tile_rows"], meta["tile_words"]):
+                raise CheckpointCorruptError(
+                    f"{path}: tiles shape {tiles.shape} does not match "
+                    f"{len(coords)} pages of the declared slab geometry")
+    rule = parse_any(meta["rule"])
+    if pool is not None and (pool.planes != meta["planes"]
+                             or pool.tile_rows != meta["tile_rows"]
+                             or pool.tile_words != meta["tile_words"]):
+        raise ValueError(
+            f"pool slab ({pool.planes}, {pool.tile_rows}, "
+            f"{pool.tile_words}) does not match checkpoint "
+            f"({meta['planes']}, {meta['tile_rows']}, {meta['tile_words']})")
+    grid = paged_grid_from_numpy(
+        coords, tiles, rule, topology=Topology(meta["topology"]),
+        bounds=meta["bounds"], tile_rows=meta["tile_rows"],
+        tile_words=meta["tile_words"], active=meta["active"],
+        generation=meta["generation"], pool=pool, capacity=capacity,
+        registry=registry, device=device)
+    return grid, meta
 
 
 def rotate_previous(path: "str | Path", suffix: str = ".prev") -> Optional[Path]:

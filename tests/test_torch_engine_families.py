@@ -142,9 +142,9 @@ def test_backend_errors():
         assert str(t_err.value) == str(j_err.value).replace(
             "gameoflifewithactors_tpu", "gameoflifewithactors_torch")
         assert "is a 1D (elementary) rule" in str(t_err.value)
-    for backend in ("sparse", "paged"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tg.Engine(grid, "bosco", backend=backend, device="cpu")
+    for backend in ("sparse", "paged"):   # ported: test_torch_sparse_families.py
+        assert tg.Engine(grid, "bosco", backend=backend,
+                         device="cpu").backend == backend
 
 
 def test_coordinator_matches_jax_for_brain_and_bosco():

@@ -187,10 +187,16 @@ def test_gens_per_exchange_and_unported_combinations():
             kwargs["mesh"] = tm
         with pytest.raises(err, match=match):
             tg.Engine(cells, rule, **kwargs)
-    for kwargs in [dict(backend="sparse"), dict(backend="paged"),
+    for kwargs in [dict(backend="sparse"),
                    dict(backend="packed", gens_per_exchange=4)]:
         with pytest.raises(NotImplementedError, match="A12"):
             tg.Engine(cells, "conway", mesh=tm, device="cpu", **kwargs)
+    # the paged backend is single-device: the JAX engine's ValueError
+    with pytest.raises(ValueError) as j_err:
+        jg.Engine(cells, "conway", mesh=jm, backend="paged")
+    with pytest.raises(ValueError) as t_err:
+        tg.Engine(cells, "conway", mesh=tm, device="cpu", backend="paged")
+    assert str(t_err.value) == str(j_err.value)
     with pytest.raises(ValueError, match="CUDA device"):
         tg.Engine(cells, "conway", mesh=tm, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="not where mesh"):

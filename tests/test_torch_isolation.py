@@ -52,7 +52,8 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "serve.session", "serve.admission",
              "serve.lanes", "serve.service", "serve.frontend",
              "models.elementary", "ops.elementary", "parallel.multihost",
-             "utils.checkpoint"):
+             "utils.checkpoint", "ops.sparse", "memory", "memory.pool",
+             "memory.paged"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -68,6 +69,43 @@ def test_importing_every_module_loads_no_jax():
     count, loaded = out.stdout.split(" ", 1)
     assert int(count) >= 45   # every module: rule families, obs, serve, mesh, ...
     assert loaded.strip() == "[]"
+
+
+_BLOCKED_RUN = """
+import sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "gameoflifewithactors_tpu"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from gameoflifewithactors_torch import Engine
+from gameoflifewithactors_torch.memory import PagedUniverse
+from gameoflifewithactors_torch.utils import checkpoint
+
+u = PagedUniverse("B3/S23", capacity=32, tile_rows=16, tile_words=1,
+                  device="cpu")
+glider = np.zeros((8, 8), np.uint8)
+glider[0, 1] = glider[1, 2] = glider[2, 0] = glider[2, 1] = glider[2, 2] = 1
+u.seed_cells(glider, origin=(1, 1))
+u.step(64)
+e = Engine(np.pad(glider, ((28, 28), (60, 60))), "B3/S23", backend="sparse",
+           device="cpu")
+e.step(64)
+print(u.population(), e.population(), e.active_tiles())
+"""
+
+
+def test_the_tiled_backends_run_with_jax_blocked():
+    """The memory/ package, the paged universe, the sparse engine and the
+    checkpoint module import and step with every import of ``jax`` and the
+    JAX package refused."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["5", "5", "1"]
 
 
 def test_chip_smoke_fails_without_a_card():

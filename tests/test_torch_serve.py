@@ -175,8 +175,10 @@ def test_lane_specs_the_port_refuses_or_resolves():
     assert SpecFamily.from_spec({"rule": "B3/S23", "shape": [16, 32]},
                                 "cpu").slot_bytes() == 2 * 16 * 1 * 4
     assert not t_lanes.kernel_takes(4, 1) and t_lanes.kernel_takes(8, 1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        SessionService(paged=True, device="cpu")
+    # paged lanes are ported (tests/test_torch_paged_serve.py): "auto"
+    # pages where the shape divides the tiles, as the JAX "auto" does
+    paged = SessionService(paged=True, device="cpu")
+    assert paged._family(dict(SPEC, backend="auto")).backend == "packed"
 
 
 # -- behaviour on the ladder ---------------------------------------------------
