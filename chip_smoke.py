@@ -57,7 +57,20 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    fixed capacity of 8 whose dense fallback must be exact; 256
    mostly-empty 1024² sessions (gliders and guns) through
    ``SessionService(paged=True)``, each equal to its dedicated engine, and
-   a ``paged1`` save and load.
+   a ``paged1`` save and load. The rest of the single-host mesh, on a (2,
+   2) mesh of the card (plain torch, launching no kernel): B3/S23 through
+   the ghost-zone pipeline (``Engine(mesh=..., backend="packed",
+   gens_per_exchange=8)``) and the deep runner, at 16384² TORUS (2000
+   generations) and 4096² DEAD (500), each equal to B1, with its
+   exchanges, the registry's ``halo_bytes_total`` against
+   ``ghost_exchange_bytes`` and ``halo_bytes_per_gen`` measured against
+   the model; the sharded sparse engine on config #5 (equal to B1 and the
+   one-device sparse engine) and on the 8192² brain and Bosco blobs (400
+   generations, equal to B3 and B4), with rates, host syncs, active tiles,
+   capacity and peak memory; and 64 masked 1024² B3/S23 universes on a (2,
+   2, 1) batch mesh, TORUS and DEAD, 2000 generations: one launch of B2's
+   slab form per chunk, equal to the lane form, ms per chunk beside the
+   lane form's.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -456,8 +469,9 @@ def seed_cells(shape, seed: int, fill: float = 0.35) -> np.ndarray:
 def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     """Phase 2 for B2: ``slab_step_kernel`` against ``slab_step_reference``
     on batches of 1, 8 and 256 bands up to 16384 rows, every edge code and
-    g in {1, 3, 8, 16}, then a glider crossing a word seam through the
-    lane runner. Returns the largest error (0)."""
+    g in {1, 3, 8, 16}, the batch mesh's 128 bands with their per-band
+    codes, then a glider crossing a word seam through the lane runner.
+    Returns the largest error (0)."""
     import torch
     from gameoflifewithactors_torch.parallel.batched import \
         multi_step_kernel_batched
@@ -501,6 +515,15 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     ext = words((256, 1056, 32))
     for g in (1, 3, 16):
         hold(ext, g, CONWAY, Topology.TORUS, 0)
+    # the batch mesh's batch: 32 universes on each of the four positions of
+    # a (2, 2, 1) mesh of one device, the per-band codes repeated per universe
+    from gameoflifewithactors_torch.parallel import batched, halo
+    bmesh = batched.make_batch_mesh(BATCH_MESH, [rng.device] * 4)
+    bl = BATCH_UNIVERSES // BATCH_MESH[0]
+    ext = words((4 * bl, LANE_SHAPE[0] // 2 + 16, LANE_SHAPE[1] // 32))
+    for topology in Topology:
+        hold(ext, 8, CONWAY, topology, halo.band_edge_codes(
+            bmesh, repeat=bl)[0] if topology is Topology.DEAD else 0)
     # the mesh main path's batch: four bands of a 16384^2 grid, one code
     # per band
     grid = words(MAIN_SHAPE[:1] + (MAIN_SHAPE[1] // 32,))
@@ -1236,6 +1259,12 @@ FAMILY_SIDE = 8192             # the other families' sparse runs
 PAGED_SESSIONS = 256           # mostly-empty 1024^2 sessions: gliders, guns
 PAGED_GENERATIONS = 512
 PAGED_POOL_TILES = 32768       # 16x1-word tiles, 64 bytes each: 2 MiB
+GHOST_RUNS = ((16384, "torus", 2000), (4096, "dead", 500))  # side, topology, n
+GHOST_G = 8                    # generations per exchange, ghost and deep
+MESH_FAMILY_GENERATIONS = 400  # the 8192^2 brain and bosco blobs on the mesh
+BATCH_MESH = (2, 2, 1)         # the batch mesh on one card
+BATCH_UNIVERSES = 64           # 1024^2 B3/S23 universes (LANE_SHAPE)
+BATCH_GENERATIONS = 2000
 
 
 def _tiled_run(make, n: int):
@@ -1358,6 +1387,7 @@ def tiled_phase(cs, card: str) -> dict:
     check(torch.equal(finals["sparse"], finals["cuda"])
           and torch.equal(finals["paged"], finals["cuda"]),
           "config #5: the sparse, paged and B1 grids differ")
+    out["config5 truth"] = finals["cuda"]   # for the mesh phase
     pop = bitpack.population(finals["cuda"])
     check(pop > 36, f"config #5 population {pop}: the gun did not fire")
     print(f"config #5 results: sparse == paged == B1 on the card after {n} "
@@ -1502,6 +1532,299 @@ def tiled_phase(cs, card: str) -> dict:
                             "pool_mib": pool_bytes / 2 ** 20,
                             "ladder_mib": ladder_bytes / 2 ** 20,
                             "save_s": save_s, "load_s": load_s}
+    return out
+
+
+def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
+    """Phase 3 for the rest of the single-host mesh, on meshes of this one
+    card: the ghost-zone pipeline (through ``Engine(mesh=...,
+    backend="packed", gens_per_exchange=8)``) and the deep runner on a (2,
+    2) mesh against B1; the sharded sparse engine on config #5 against
+    the tiled phase's B1 grid (``config5_truth``) and on the 8192^2 brain
+    and bosco blobs against B3 and B4; the batch mesh, which launches B2's
+    slab form once per chunk, against the lane form. Each path is driven with
+    the launch counts set to 0 just before and read just after; the
+    plain-torch paths launch no kernel. Returns the records."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch import engine as engine_lib
+    from gameoflifewithactors_torch.models import seeds
+    from gameoflifewithactors_torch.models.rules import CONWAY
+    from gameoflifewithactors_torch.obs.registry import REGISTRY
+    from gameoflifewithactors_torch.ops import bitpack
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel import batched, halo, sharded
+    from gameoflifewithactors_torch.parallel.mesh import (
+        device_put_sharded_grid, make_mesh)
+
+    mesh = make_mesh((2, 2), [dev] * 4)
+    out = {}
+
+    def plain_only(counts, what):
+        check(all(v == 0 for v in counts.values()),
+              f"{what} launched a kernel: {counts}")
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # -- ghost and deep, B3/S23 ---------------------------------------------
+    g = GHOST_G
+    for side, topo, n in GHOST_RUNS:
+        topology = Topology(topo)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(side)
+        cells = (torch.rand((side, side), generator=gen, device=dev)
+                 < 0.5).to(torch.uint8)
+        reset_launches(cs)
+        truth_engine = Engine(cells, CONWAY, topology=topology,
+                              backend="cuda", device=dev)
+        truth_engine.step(n)
+        check(launches(cs)["life_packed"] > 0, "the B1 reference launched "
+              "no kernel")
+        truth = truth_engine.state.contiguous()
+        del truth_engine
+        # the ghost pipeline through the engine
+        exchanges0 = REGISTRY.counter("halo_exchanges_total").value()
+        bytes0 = REGISTRY.counter("halo_bytes_total").value()
+        moved0 = halo.exchanged_bytes()
+        engine = Engine(cells, CONWAY, topology=topology, backend="packed",
+                        mesh=mesh, gens_per_exchange=g)
+        check(engine._ghost_pipeline, f"{side}^2 on (2, 2) did not take the "
+              "ghost pipeline")
+        reset_launches(cs)
+        _, wall = synced(lambda: engine.step(n))
+        plain_only(launches(cs), "the ghost pipeline")
+        check(torch.equal(engine.state, truth),
+              f"ghost {side}^2 {topo} differs from B1")
+        exchanges = REGISTRY.counter("halo_exchanges_total").value() - exchanges0
+        counted = REGISTRY.counter("halo_bytes_total").value() - bytes0
+        moved = halo.exchanged_bytes() - moved0
+        shape = (side, side // bitpack.WORD)
+        per_exchange = sharded.ghost_exchange_bytes(shape, mesh, topology, g)
+        model = engine.halo_bytes_per_gen("model")
+        measured = engine.halo_bytes_per_gen("measured")
+        check(exchanges == n // g and counted == exchanges * per_exchange,
+              f"ghost registry: {exchanges} exchanges, {counted} bytes")
+        check(model == measured, f"halo_bytes_per_gen model {model} != "
+              f"measured {measured}")
+        rec = {"ms_per_gen": 1e3 * wall / n, "exchanges": exchanges,
+               "halo_bytes_total": counted, "exchange_bytes": per_exchange,
+               "moved": moved, "model": model, "measured": measured}
+        out[f"ghost {side} {topo}"] = rec
+        print(f"ghost pipeline (2, 2) mesh of cuda:0, {side}x{side} B3/S23 "
+              f"{topo}, G {g}, {n} generations: == B1 (torch.equal); "
+              f"{rec['ms_per_gen']:.5f} ms per generation (host clock incl. "
+              f"sync); {exchanges:.0f} exchanges, halo_bytes_total "
+              f"{counted:.0f} == {exchanges:.0f} x ghost_exchange_bytes "
+              f"{per_exchange}; strips counted by the exchange {moved} "
+              f"(remainder generations included); halo_bytes_per_gen model "
+              f"{model} == measured {measured}  [{card}]")
+        del engine
+        # the deep runner, chunked as the engine chunks
+        deep = sharded.make_multi_step_packed_deep(mesh, CONWAY, topology, g)
+        run = engine_lib._chunked(
+            deep, sharded.make_multi_step_packed(mesh, CONWAY, topology), g)
+        state = device_put_sharded_grid(bitpack.pack(cells), mesh)
+        moved0 = halo.exchanged_bytes()
+        reset_launches(cs)
+        state, wall = synced(lambda: run(state, n))
+        plain_only(launches(cs), "the deep runner")
+        moved = halo.exchanged_bytes() - moved0
+        check(torch.equal(state.gather(), truth),
+              f"deep {side}^2 {topo} differs from B1")
+        per_chunk = sharded.deep_exchange_bytes(shape, mesh, topology, g)
+        one = device_put_sharded_grid(bitpack.pack(cells), mesh)
+        moved1 = halo.exchanged_bytes()
+        deep(one, 1)
+        measured = -(-(halo.exchanged_bytes() - moved1) // g)
+        check(measured == -(-per_chunk // g), f"deep bytes measured "
+              f"{measured} != model {-(-per_chunk // g)} per generation")
+        rec = {"ms_per_gen": 1e3 * wall / n, "exchanges": n // g + n % g,
+               "exchange_bytes": per_chunk, "moved": moved,
+               "measured": measured}
+        out[f"deep {side} {topo}"] = rec
+        print(f"deep runner (2, 2) mesh of cuda:0, {side}x{side} B3/S23 "
+              f"{topo}, G {g}, {n} generations: == B1 (torch.equal); "
+              f"{rec['ms_per_gen']:.5f} ms per generation; {n // g} chunk "
+              f"exchanges of deep_exchange_bytes {per_chunk} and {n % g} "
+              f"per-generation ones, {moved} bytes counted; per generation "
+              f"measured {measured} == model  [{card}]")
+        del state, one, truth, cells
+        torch.cuda.empty_cache()
+
+    # -- sharded sparse: config #5, then the brain and bosco blobs ----------
+    side, n = CONFIG5_SIDE, CONFIG5_GENERATIONS
+    words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
+                                left_word=side // bitpack.WORD // 2)
+    reset_launches(cs)
+    engine, build_s, wall, peak = _tiled_run(lambda: Engine.from_packed(
+        words, "B3/S23", topology=Topology.TORUS, backend="sparse",
+        mesh=mesh), n)
+    plain_only(launches(cs), "config #5 on the mesh")
+    stats = engine._runner.stats
+    check(torch.equal(engine.state, config5_truth),
+          "config #5 on the (2, 2) mesh differs from the sparse and B1 runs")
+    rec = {"gens_per_s": n / wall, "ms_per_gen": 1e3 * wall / n,
+           "syncs_per_gen": stats["syncs"] / n,
+           "active_tiles": engine.active_tiles(),
+           "capacity": stats["capacity"], "tiles": engine._sparse_tiles,
+           "peak_mib": peak / 2 ** 20, "build_s": build_s,
+           "halo_model": engine.halo_bytes_per_gen("model"),
+           "halo_measured": engine.halo_bytes_per_gen("measured")}
+    check(rec["halo_model"] == rec["halo_measured"],
+          f"config #5 halo bytes model {rec['halo_model']} != measured "
+          f"{rec['halo_measured']}")
+    out["config5 mesh"] = rec
+    print(f"config #5 ({side}x{side} Gosper gun, TORUS, {n} generations) on "
+          f"the sharded sparse engine, (2, 2) mesh of cuda:0, tiles "
+          f"{rec['tiles']} per shard: == B1 and the one-device sparse engine "
+          f"(torch.equal); built in {build_s:.4f} s, {rec['ms_per_gen']:.5f} "
+          f"ms per generation, {rec['gens_per_s']:.2f} gens/s (host clock "
+          f"incl. sync); {rec['syncs_per_gen']:.4f} host syncs per "
+          f"generation; active tiles {rec['active_tiles']}, capacity "
+          f"{rec['capacity']} per shard; peak {rec['peak_mib']:.1f} MiB "
+          f"beyond the start; halo bytes per generation model "
+          f"{rec['halo_model']} == measured  [{card}]")
+    del engine, words, config5_truth
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(11)
+    side, n = FAMILY_SIDE, MESH_FAMILY_GENERATIONS
+    for spec, states, topology, kernel in (
+            ("brain", 3, Topology.TORUS, "life_generations"),
+            ("bosco", 2, Topology.DEAD, "life_ltl")):
+        cells = np.zeros((side, side), np.uint8)
+        blob = (rng.random((512, 512)) < 0.45) * rng.integers(
+            1, states, (512, 512))
+        c = side // 2 - 256
+        cells[c:c + 512, c:c + 512] = blob
+        reset_launches(cs)
+        truth = Engine(cells, spec, topology=topology, backend="cuda",
+                       device=dev)
+        truth.step(n)
+        check(launches(cs)[kernel] > 0, f"{spec} reference launched no "
+              f"{kernel}")
+        reset_launches(cs)
+        engine, _, wall, peak = _tiled_run(lambda: Engine(
+            cells, spec, topology=topology, backend="sparse", mesh=mesh), n)
+        plain_only(launches(cs), f"{spec} on the mesh")
+        check(torch.equal(engine.state, truth.state),
+              f"{spec} {side}^2 on the (2, 2) mesh differs from {kernel}")
+        stats = engine._runner.stats
+        rec = {"gens_per_s": n / wall, "syncs_per_gen": stats["syncs"] / n,
+               "active_tiles": engine.active_tiles(),
+               "capacity": stats["capacity"], "peak_mib": peak / 2 ** 20}
+        out[f"family {spec} mesh"] = rec
+        print(f"{spec} {side}x{side} {topology.value}, 512^2 blob, {n} "
+              f"generations on the sharded sparse engine, (2, 2) mesh of "
+              f"cuda:0: == {kernel} (torch.equal); {rec['gens_per_s']:.2f} "
+              f"gens/s, {rec['syncs_per_gen']:.4f} host syncs per "
+              f"generation, active tiles {rec['active_tiles']}, capacity "
+              f"{rec['capacity']} per shard, peak {rec['peak_mib']:.1f} MiB "
+              f"beyond the start  [{card}]")
+        del engine, truth
+    torch.cuda.empty_cache()
+
+    # -- the batch mesh: B2's slab form per device and chunk ---------------
+    bmesh = batched.make_batch_mesh(BATCH_MESH, [dev] * 4)
+    h, w = LANE_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(64)
+    grids = bitpack.pack((torch.rand((BATCH_UNIVERSES * h, w), generator=gen,
+                                     device=dev) < 0.35).to(torch.uint8)
+                         ).view(BATCH_UNIVERSES, h, w // bitpack.WORD)
+    mask = torch.ones(BATCH_UNIVERSES, dtype=torch.int32, device=dev)
+    mask[::4] = 0
+    g = cs.DEFAULT_BAND_GENS_PER_CALL
+    chunks = BATCH_GENERATIONS // g
+    # B2's two forms share one launch count, so the run also counts each
+    # form's launch function on its own, and keeps the first slab-form
+    # call's input, edge codes and result to hold against the plain version
+    launch_slab, launch_lane = cs._launch_slab, cs._launch_lane
+    slab_entry = cs.slab_step_kernel
+    seen, first = {}, []
+
+    def counted_slab(*args, **kwargs):
+        seen["slab"] += 1
+        return launch_slab(*args, **kwargs)
+
+    def counted_lane(*args, **kwargs):
+        seen["lane"] += 1
+        return launch_lane(*args, **kwargs)
+
+    def kept_slab(ext, gens, **kwargs):
+        result = slab_entry(ext, gens, **kwargs)
+        if not first:
+            first.append((ext.clone(), gens, kwargs, result.clone()))
+        return result
+
+    worst = 0
+    for topology in (Topology.TORUS, Topology.DEAD):
+        run = batched.make_multi_step_kernel_batched_mesh(
+            bmesh, CONWAY, topology, gens_per_exchange=g, masked=True)
+        placed = batched.device_put(grids, batched.batch_sharding(bmesh))
+        seen.update(slab=0, lane=0)
+        first.clear()
+        cs._launch_slab, cs._launch_lane = counted_slab, counted_lane
+        cs.slab_step_kernel = kept_slab
+        try:
+            reset_launches(cs)
+            got, wall = synced(lambda: run(placed, chunks, mask))
+            counts = launches(cs)
+        finally:
+            cs._launch_slab, cs._launch_lane = launch_slab, launch_lane
+            cs.slab_step_kernel = slab_entry
+        check(counts["life_slab"] == chunks * len(bmesh.groups)
+              and all(v == 0 for k, v in counts.items() if k != "life_slab"),
+              f"batch mesh launched {counts}, expected {chunks} slab "
+              "launches")
+        check(seen == {"slab": chunks * len(bmesh.groups), "lane": 0},
+              f"batch mesh launched the forms {seen}, expected only "
+              f"{chunks * len(bmesh.groups)} of the slab form")
+        # the first chunk's launch against the plain slab form on its own
+        # input: the runner's row exchange of the placed batch, with the
+        # per-band codes of band_edge_codes(repeat=universes per position)
+        ext, gens, kwargs, result = first[0]
+        shape, code = tuple(ext.shape), kwargs["edge_code"]
+        if topology is Topology.DEAD:
+            bl = BATCH_UNIVERSES // BATCH_MESH[0]
+            check(torch.equal(code, halo.band_edge_codes(bmesh, repeat=bl)[0]),
+                  "the batch mesh's edge codes are not band_edge_codes'")
+        want = cs.slab_step_reference(ext, gens, **kwargs)
+        err = max_abs_err(result, want)
+        check(err == 0, f"batch mesh slab launch at {shape} "
+                        f"{topology.value} != slab_step_reference ({err})")
+        worst = max(worst, err)
+        del first[:], ext, result, want, code
+        reset_launches(cs)
+        lane, lane_wall = synced(lambda: batched.multi_step_kernel_batched(
+            grids, BATCH_GENERATIONS, mask, rule=CONWAY, topology=topology))
+        lane_launches = launches(cs)["life_slab"]
+        check(torch.equal(got.gather(), lane),
+              f"batch mesh {topology.value} differs from the lane form")
+        check(torch.equal(lane[::4], grids[::4]),
+              "frozen universes moved")
+        rec = {"launches": seen["slab"], "ms_per_chunk":
+               1e3 * wall / chunks, "lane_ms_per_chunk":
+               1e3 * lane_wall / chunks, "lane_launches": lane_launches,
+               "max_abs_err": err}
+        out[f"batch mesh {topology.value}"] = rec
+        print(f"batch mesh {BATCH_MESH} of cuda:0, {BATCH_UNIVERSES} x "
+              f"{h}x{w} B3/S23 {topology.value}, a quarter masked, "
+              f"{BATCH_GENERATIONS} generations: == the lane form "
+              f"(torch.equal); {seen['slab']} B2 slab-form launches (one per "
+              f"device and chunk) and {seen['lane']} of the lane form; the "
+              f"first chunk's launch on {shape} "
+              f"== slab_step_reference, max_abs_err {err}; "
+              f"{rec['ms_per_chunk']:.5f} ms per "
+              f"chunk of {g} (exchange, launch, crop, select; host clock "
+              f"incl. sync) against the lane form's "
+              f"{rec['lane_ms_per_chunk']:.5f} ms ({lane_launches} "
+              f"launches)  [{card}]")
+        del got, lane, placed
     return out
 
 
@@ -1922,8 +2245,13 @@ def main() -> int:
           f"{mesh['life_slab']['launches']} of the slab form on the B3/S23 "
           "mesh path")
     stamp("the serving main path")
-    tiled_phase(cs, card)
+    tiled = tiled_phase(cs, card)
     stamp("the sparse and paged engines")
+    paths = mesh_paths_phase(cs, card, dev, tiled.pop("config5 truth"))
+    del tiled
+    worst["life_slab"] = max([worst["life_slab"]] + [
+        paths[f"batch mesh {t}"]["max_abs_err"] for t in ("torus", "dead")])
+    stamp("ghost, deep, sharded sparse and the batch mesh")
 
     # -- 4. timing at the main path's shape ------------------------------------
     sms = torch.cuda.get_device_properties(0).multi_processor_count

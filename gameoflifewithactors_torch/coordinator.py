@@ -159,6 +159,10 @@ class GridCoordinator:
                     wall_seconds=dt,
                     cell_updates_per_sec=cells / dt,
                     population=self.population() if self.track_population else None,
+                    # the arithmetic model: the measured source steps a
+                    # copy of the state once, which a live loop should not
+                    halo_bytes=self.engine.halo_bytes_per_gen(
+                        source="model") * n or None,
                     active_tiles=self.engine.active_tiles(),
                 )
             )

@@ -10,7 +10,8 @@ mesh the band runners of :mod:`.parallel.sharded`) or by plain PyTorch.
 ``step`` only enqueues work on the current CUDA stream; data comes back to
 the host only when :meth:`Engine.snapshot` or :meth:`Engine.population`
 asks for it. The activity-tiled backends are the exception: ``"sparse"``
-(:mod:`.ops.sparse`) reads one candidate count per chunk, ``"paged"``
+(:mod:`.ops.sparse`) reads one candidate count per chunk (with a mesh,
+every shard's count in one transfer per generation), ``"paged"``
 (:mod:`.memory`) its page flags per chunk, as in the JAX package.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
@@ -21,6 +22,8 @@ on the CPU unasked.
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import warnings
 
 import numpy as np
 import torch
@@ -41,20 +44,27 @@ from .ops.packed_generations import (
     unpack_generations,
 )
 from .ops.packed_ltl import multi_step_ltl_packed, multi_step_ltl_planes
-from .ops.sparse import DEFAULT_TILE_ROWS, DEFAULT_TILE_WORDS, SparseEngineState
+from .ops.sparse import (
+    DEFAULT_TILE_ROWS,
+    DEFAULT_TILE_WORDS,
+    SparseEngineState,
+    _wake_dilation,
+    auto_tile,
+)
 from .ops.stencil import Topology, multi_step
 from .parallel import sharded
-from .parallel.mesh import COL_AXIS, ROW_AXIS, Mesh, device_put_sharded_grid
+from .parallel.halo import exchanged_bytes
+from .parallel.mesh import (
+    COL_AXIS,
+    ROW_AXIS,
+    Mesh,
+    device_put_sharded_grid,
+    ghost_fits,
+)
 from .utils.interop import state_from_numpy
 
 BACKENDS = ("packed", "dense", "cuda", "sparse", "paged")
 _TILED_BACKENDS = ("sparse", "paged")
-
-
-def _not_ported(what: str, item: str = "queue A") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to gameoflifewithactors_torch "
-        f"(see ROADMAP.md {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -81,6 +91,20 @@ def placement_device(device=None, mesh: Optional[Mesh] = None) -> torch.device:
     if device is not None and torch.device(device).type != home.type:
         raise ValueError(f"device {device} is not where mesh {mesh} lives")
     return home
+
+
+def _chunked(bulk, pergen, g: int):
+    """``(state, n)`` runner: ``n // g`` chunks through ``bulk`` (``(state,
+    chunks)``), the ``n % g`` remainder through the per-generation
+    ``pergen``."""
+    def run(state, n):
+        chunks, rem = divmod(int(n), g)
+        if chunks:
+            state = bulk(state, chunks)
+        if rem:
+            state = pergen(state, rem)
+        return state
+    return run
 
 
 def _kernels_run_on(device: torch.device) -> bool:
@@ -162,13 +186,19 @@ class Engine:
         (full-width row bands over the flattened mesh, one slab-kernel
         launch per device and chunk), which "auto" picks on CUDA wherever
         the slab kernel takes the band shape; "packed" and "dense" step 2D
-        tiles in plain torch, one halo exchange per generation.
+        tiles in plain torch, one halo exchange per generation ("packed"
+        with ``gens_per_exchange`` G > 1: one per G generations, through
+        the ghost-zone pipeline where the tile holds its rings, else the
+        deep runner); "sparse" steps the active tiles of every shard
+        (tiles fitted to the local shard).
     device: "cuda" (default) or "cpu"; with a mesh, the mesh's devices
         (``device``, if given, must be of their type).
     mesh: a :class:`.parallel.mesh.Mesh` to shard the grid over, or None.
     gens_per_exchange: with a mesh and backend "cuda", generations per
         chunk (one row exchange and one kernel launch each), 1..32; None is
-        the family's kernel default (8 B/S, 16 Generations, 4 LtL).
+        the family's kernel default (8 B/S, 16 Generations, 4 LtL). With a
+        mesh, backend "packed" and a B/S rule, generations per halo
+        exchange (default 1).
     sparse_opts: for "sparse" and "paged", the tiling: ``tile_rows``,
         ``tile_words``, ``capacity`` and ``chunk_gens`` (the JAX engine's
         keys and defaults).
@@ -255,9 +285,6 @@ class Engine:
                 "the paged backend is single-device (its page tables are "
                 "host bookkeeping over one pool slab); use backend="
                 "'sparse' for sharded activity skipping")
-        if mesh is not None and backend == "sparse":
-            raise _not_ported("the sharded 'sparse' backend (the sharded "
-                              "sparse runners)", "A12")
         if backend not in BACKENDS and backend != "auto":
             raise ValueError(
                 f"backend must be 'auto' or one of {BACKENDS}, got {backend!r}")
@@ -284,11 +311,8 @@ class Engine:
                 "backends only (mesh + backend='packed'/'cuda'/'auto' for "
                 "3x3 binary rules, mesh + backend='cuda' for Generations "
                 "and LtL)")
-        if backend == "packed" and gens_per_exchange not in (None, 1):
-            raise _not_ported(
-                "the communication-avoiding deep and ghost-zone packed "
-                "runners (mesh + backend='packed' + gens_per_exchange > 1)",
-                "A12")
+        if backend in _TILED_BACKENDS:
+            self._check_tiled(backend, h, w, packs, sparse_opts, ny)
         if mesh is not None:
             self._check_mesh(h, w, backend)
         if backend == "cuda":
@@ -317,8 +341,6 @@ class Engine:
             raise ValueError(
                 f"backend 'packed' needs a width that is a multiple of "
                 f"{bitpack.WORD}, got {w}")
-        if backend in _TILED_BACKENDS:
-            self._check_tiled(backend, h, w, packs, sparse_opts)
         self._sparse_opts = dict(sparse_opts or {})
         self.topology = topology
         self.backend = backend
@@ -331,31 +353,40 @@ class Engine:
             self._layout = "dense"
         else:
             self._layout = "planes" if self._states > 2 else "words"
-        self._runner = None if mesh is None else self._mesh_runner()
         self._sparse = None   # the "sparse"/"paged" state, once adopted
+        self._flags = None    # a mesh "sparse" engine's placed tile map
+        self._sparse_tiles = None
+        self._ghost_pipeline = False   # the width-G ghost-zone runner in use
+        self._one_chunk = None   # mesh "packed" G > 1: one unaccounted chunk
+        self._halo_measured = None
+        self._runner = None if mesh is None else self._mesh_runner()
 
     def _check_tiled(self, backend: str, h: int, w: int, packs: bool,
-                     sparse_opts: Optional[dict]) -> None:
+                     sparse_opts: Optional[dict], ny: int) -> None:
         """The JAX engine's width and tile checks of the activity-tiled
-        backends, in cell units, with its messages."""
+        backends, in cell units, with its messages (a mesh's ``ny``
+        columns shard the words; its divisibility and the shard's tiles
+        are checked by :meth:`_check_mesh` and :meth:`_mesh_sparse_tiles`)."""
         if not packs:
             if isinstance(self.rule, GenRule):
                 raise ValueError(
                     f"the {backend} backend stores Generations universes as "
                     f"bit-plane stacks: width {w} must shard into whole "
-                    f"32-cell words over 1 mesh column(s) (divisible by "
-                    f"{bitpack.WORD})")
+                    f"32-cell words over {ny} mesh column(s) (divisible by "
+                    f"{bitpack.WORD * ny})")
             if isinstance(self.rule, LtLRule):
                 raise ValueError(
                     f"{backend} LtL needs a width divisible by "
-                    f"{bitpack.WORD} (32-cell words must shard whole over 1 "
-                    f"mesh column(s)), got {self.rule.notation} on "
+                    f"{bitpack.WORD * ny} (32-cell words must shard whole "
+                    f"over {ny} mesh column(s)), got {self.rule.notation} on "
                     f"{(h, w)}; use backend='dense'")
-            raise ValueError(
-                f"backend {backend!r} needs a width that is a multiple of "
-                f"{bitpack.WORD}, got {w}")
+            if self.mesh is None:
+                raise ValueError(
+                    f"backend {backend!r} needs a width that is a multiple "
+                    f"of {bitpack.WORD}, got {w}")
         opts = dict(sparse_opts or {})
-        if backend == "sparse" and ("tile_rows" in opts or "tile_words" in opts):
+        if self.mesh is None and backend == "sparse" and (
+                "tile_rows" in opts or "tile_words" in opts):
             # without explicit tiles SparseEngineState auto-tiles divisibly
             tr = opts.get("tile_rows", DEFAULT_TILE_ROWS)
             tw = opts.get("tile_words", DEFAULT_TILE_WORDS)
@@ -378,14 +409,14 @@ class Engine:
                     f"bands over mesh ({nx}, {ny}): need height % {nb} == 0 "
                     f"and width % {bitpack.WORD} == 0 (band-kernel path)")
         else:
-            packed = backend == "packed"
+            packed = backend in ("packed", "sparse")
             wq = bitpack.WORD * ny if packed else ny
             if h % nx or w % wq:
                 raise ValueError(
                     f"grid {(h, w)} not divisible over mesh ({nx}, {ny}): "
                     f"need height % {nx} == 0 and width % {wq} == 0"
                     + (" (bit-packed backends shard 32-cell words)"
-                       if packed else ""))
+                       if packed and self._states == 2 else ""))
         if isinstance(self.rule, LtLRule):
             r = self.rule.radius
             if backend == "cuda":
@@ -401,9 +432,44 @@ class Engine:
                     f"radius {r}: halo exchange needs depth <= tile size; use "
                     "fewer devices")
 
+    def _mesh_sparse_tiles(self) -> Tuple[int, int]:
+        """The per-shard sparse tiles: ``sparse_opts`` or
+        :func:`.ops.sparse.auto_tile` of the LOCAL shard, which they must
+        divide (the JAX engine's check and message)."""
+        nx, ny = self.mesh.shape[ROW_AXIS], self.mesh.shape[COL_AXIS]
+        local_h = self.shape[0] // nx
+        local_w = self.shape[1] // bitpack.WORD // ny
+        auto_tr, auto_tw = auto_tile(local_h, local_w)
+        tr = self._sparse_opts.get("tile_rows", auto_tr)
+        tw = self._sparse_opts.get("tile_words", auto_tw)
+        if local_h % tr or local_w % tw:
+            raise ValueError(
+                f"per-device shard {local_h}x{local_w * bitpack.WORD} cells "
+                f"not divisible into sparse tiles of {tr}x"
+                f"{tw * bitpack.WORD} cells; pick sparse tile dims that "
+                "divide the shard (or omit them to auto-tile)")
+        return tr, tw
+
+    def _tiled_sparse_runner(self):
+        """A new per-tile sharded sparse runner at the engine's tiles (one
+        maker serves words and plane stacks)."""
+        tr, tw = self._sparse_tiles
+        return sharded.make_multi_step_packed_sparse_tiled(
+            self.mesh, self.rule, self.topology, tile_rows=tr, tile_words=tw,
+            capacity=self._sparse_opts.get("capacity"))
+
     def _mesh_runner(self):
         """The sharded runner of the backend and the rule's family."""
         mesh, rule, topology = self.mesh, self.rule, self.topology
+        if self.backend == "sparse":
+            self._sparse_tiles = self._mesh_sparse_tiles()
+            run2 = self._tiled_sparse_runner()
+
+            def run(state, n):
+                state, self._flags = run2(state, self._flags, n)
+                return state
+            run.stats = run2.stats   # host reads, per-shard capacity
+            return run
         if self.backend == "cuda":
             if isinstance(rule, GenRule):
                 make = sharded.make_multi_step_generations_kernel
@@ -423,7 +489,25 @@ class Engine:
         else:
             make = (sharded.make_multi_step_dense if dense
                     else sharded.make_multi_step_packed)
-        return make(mesh, rule, topology)
+        pergen = make(mesh, rule, topology)
+        g = self.gens_per_exchange
+        if self.backend != "packed" or g == 1:
+            return pergen
+        # communication-avoiding: bulk chunks through the width-G ghost-zone
+        # pipeline where the tile holds its rings, else the depth-G runner
+        nx, ny = mesh.shape[ROW_AXIS], mesh.shape[COL_AXIS]
+        h, wp = self.shape[0] // nx, self.shape[1] // bitpack.WORD // ny
+        if ghost_fits(h, wp, g):
+            bulk = sharded.make_multi_step_packed_ghost(
+                mesh, rule, topology, gens_per_exchange=g)
+            self._ghost_pipeline = True
+            self._one_chunk = sharded.make_multi_step_packed_ghost(
+                mesh, rule, topology, gens_per_exchange=g, unroll_chunks=1)
+        else:
+            bulk = sharded.make_multi_step_packed_deep(
+                mesh, rule, topology, gens_per_exchange=g)
+            self._one_chunk = lambda state: bulk(state, 1)
+        return _chunked(bulk, pergen, g)
 
     def _resolve_auto(self, h: int, w: int, packs: bool,
                       ltl_planes: bool, g: int) -> str:
@@ -477,8 +561,15 @@ class Engine:
         return bitpack.pack(cells) if self._layout == "words" else cells
 
     def _adopt(self, state: torch.Tensor) -> None:
-        """Make the encoded ``state`` the engine's: placed on the mesh, or
-        held by the sparse or paged state."""
+        """Make the encoded ``state`` the engine's: placed on the mesh (a
+        mesh "sparse" engine seeds its tile map from it), or held by the
+        sparse or paged state."""
+        if self.mesh is not None:
+            self._state = self._place(state)
+            if self.backend == "sparse":
+                self._flags = sharded.initial_tile_activity(
+                    self._state, self.mesh, *self._sparse_tiles)
+            return
         if self.backend == "sparse":
             self._sparse = SparseEngineState(
                 state, self.rule, topology=self.topology, **self._sparse_opts)
@@ -607,12 +698,110 @@ class Engine:
         return int((state == 1).sum(dtype=torch.int64))
 
     def active_tiles(self) -> Optional[int]:
-        """The "sparse" backend's changed tiles (its activity map's count)
-        or the pages the "paged" backend holds; None for the other
-        backends."""
+        """The "sparse" backend's changed tiles (its activity map's count;
+        with a mesh, the count over every shard's map) or the pages the
+        "paged" backend holds; None for the other backends."""
+        if self._flags is not None:
+            return sum(int(p.sum()) for p in self._flags.parts)
         if self._sparse is None:
             return None
         return self._sparse.active_tiles()
+
+    def halo_bytes_per_gen(self, source: str = "auto") -> int:
+        """Bytes one generation moves between mesh positions in halo
+        strips, amortised over the chunk when one exchange serves several
+        generations; 0 without a mesh.
+
+        ``source``: "measured" runs one generation (one chunk of a chunked
+        runner, amortised, ceil) of the engine's runner on a copy of the
+        state and reads :func:`.parallel.halo.exchanged_bytes` (measured
+        once, then cached); "model" is the JAX engine's arithmetic, the
+        activity map's strips of a mesh "sparse" engine included; "auto"
+        serves the measured figure, and the model with a
+        ``RuntimeWarning`` only if measuring fails."""
+        if source not in ("auto", "measured", "model"):
+            raise ValueError(
+                f"source must be 'auto', 'measured', or 'model', got {source!r}")
+        if self.mesh is None:
+            return 0
+        if source != "model":
+            if self._halo_measured is None:
+                try:
+                    self._halo_measured = (self._measure_halo_bytes(), None)
+                except Exception as exc:
+                    self._halo_measured = (None, exc)
+                    warnings.warn(
+                        "halo_bytes_per_gen: measurement failed "
+                        f"({type(exc).__name__}: {exc}); serving the "
+                        "arithmetic model", RuntimeWarning, stacklevel=2)
+            value, err = self._halo_measured
+            if value is not None:
+                return value
+            if source == "measured":
+                raise RuntimeError(
+                    "measuring the halo bytes of one generation failed; "
+                    "use source='model'") from err
+        return self._halo_model()
+
+    def _measure_halo_bytes(self) -> int:
+        state = self._state.with_parts(p.clone() for p in self._state.parts)
+        before = exchanged_bytes()
+        if self.backend == "sparse":
+            # a runner of its own: the engine's keeps its buffers
+            flags = self._flags.with_parts(p.clone() for p in self._flags.parts)
+            self._tiled_sparse_runner()(state, flags, 1)
+            return exchanged_bytes() - before
+        g = self.gens_per_exchange
+        if self._one_chunk is not None:
+            self._one_chunk(state)
+        elif self.backend == "cuda":
+            self._runner(state, g)
+        else:
+            self._runner(state, 1)
+            g = 1
+        return -(-(exchanged_bytes() - before) // g)
+
+    def _halo_model(self) -> int:
+        """The JAX engine's ``halo_bytes_per_gen(source="model")``."""
+        nx, ny = self.mesh.shape[ROW_AXIS], self.mesh.shape[COL_AXIS]
+        h, w = self.shape
+        depth = self.rule.radius if isinstance(self.rule, LtLRule) else 1
+        g = self.gens_per_exchange
+        if self.backend == "cuda":
+            # full-width bands over the flattened mesh: depth-(r*g) row
+            # strips of every plane per chunk, no column phase
+            nb = nx * ny
+            if nb == 1:
+                return 0
+            b = n_planes(self._states) if self._layout == "planes" else 1
+            strip = b * depth * g * (w // bitpack.WORD) * 4
+            sends = 2 * (nb if self.topology is Topology.TORUS else nb - 1)
+            return -(-sends * strip // g)
+        if g > 1:
+            # the packed B/S chunk runners: one exchange per g generations
+            per_exchange = (sharded.ghost_exchange_bytes if self._ghost_pipeline
+                            else sharded.deep_exchange_bytes)
+            return -(-per_exchange((h, w // bitpack.WORD), self.mesh,
+                                   self.topology, g) // g)
+        # one exchange per generation: depth-row strips of every plane, and
+        # column strips one word (packed) or depth bytes (dense) wide
+        if self._layout == "dense":
+            b, wq, itemsize, col_width = 1, w, 1, depth
+        else:
+            b = n_planes(self._states) if self._layout == "planes" else 1
+            wq, itemsize, col_width = w // bitpack.WORD, 4, 1
+        row_strip = b * depth * (wq // ny) * itemsize
+        col_strip = b * col_width * (h // nx + 2 * depth) * itemsize
+        row_sends, col_sends = sharded.halo_sends(self.mesh, self.topology)
+        total = row_sends * row_strip + col_sends * col_strip
+        if self._flags is not None:
+            # the tile map's strips: tile-ring deep, 4-byte flags
+            fy, fx = (p * n for p, n in zip(self._flags.parts[0].shape[-2:],
+                                            (nx, ny)))
+            dy, dx = _wake_dilation(self.rule, *self._sparse_tiles)
+            total += (row_sends * dy * (fx // ny) * 4
+                      + col_sends * dx * (fy // nx + 2 * dy) * 4)
+        return total
 
     # -- state injection -----------------------------------------------------
 
@@ -622,7 +811,8 @@ class Engine:
             # the same configuration, adaptive capacity included
             self._sparse = self._sparse.reseed(state)
         else:
-            self._state = self._place(state)
+            # a mesh "sparse" engine re-seeds its tile map from the grid
+            self._adopt(state)
         if generation is not None:
             self.generation = generation
 

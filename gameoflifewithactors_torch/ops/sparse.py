@@ -239,25 +239,26 @@ def initial_activity(padded: torch.Tensor, tile_rows: int, tile_words: int,
 
 def _dilate(active: torch.Tensor, wrap: bool = False, dy: int = 1,
             dx: int = 1) -> torch.Tensor:
-    """(2dy+1)×(2dx+1) tile-neighbourhood OR: which tiles must be stepped.
+    """(2dy+1)×(2dx+1) tile-neighbourhood OR over the last two dims (a
+    leading dim is a stack of maps): which tiles must be stepped.
     ``wrap`` makes it toroidal (a glider crossing the seam finds its
     destination awake)."""
     a = active
     for _ in range(dy):
         if wrap:
-            a = a | torch.roll(a, 1, 0) | torch.roll(a, -1, 0)
+            a = a | torch.roll(a, 1, -2) | torch.roll(a, -1, -2)
         else:
             b = a.clone()
-            b[1:] |= a[:-1]
-            b[:-1] |= a[1:]
+            b[..., 1:, :] |= a[..., :-1, :]
+            b[..., :-1, :] |= a[..., 1:, :]
             a = b
     for _ in range(dx):
         if wrap:
-            a = a | torch.roll(a, 1, 1) | torch.roll(a, -1, 1)
+            a = a | torch.roll(a, 1, -1) | torch.roll(a, -1, -1)
         else:
             b = a.clone()
-            b[:, 1:] |= a[:, :-1]
-            b[:, :-1] |= a[:, 1:]
+            b[..., 1:] |= a[..., :-1]
+            b[..., :-1] |= a[..., 1:]
             a = b
     return a
 

@@ -1,7 +1,8 @@
-"""Batch-of-universes runners on one device: the serving lanes' steppers.
+"""Batch-of-universes runners: the serving lanes' steppers, and the batch
+mesh.
 
-Counterpart of ``gameoflifewithactors_tpu.parallel.batched`` on a
-(1, 1, 1) mesh. The batch is the leading dimension of a ``(B, H, W/32)``
+Counterpart of ``gameoflifewithactors_tpu.parallel.batched``. On one
+device (a (1, 1, 1) mesh): The batch is the leading dimension of a ``(B, H, W/32)``
 int32 tensor of packed words; every universe steps at once and none
 exchanges anything with another. With a ``mask`` (a ``(B,)`` vector,
 nonzero = live), universes whose entry is 0 come out bit-identical to
@@ -22,11 +23,26 @@ the slots that owe no generations.
   (:mod:`..memory`): a batch of physical tiles whose halos are gathered
   through a ``(B, 8)`` neighbour-slot table, plain torch (the JAX runner
   is XLA's gather and step; no TPU kernel serves it).
+
+On a batch mesh (:func:`make_batch_mesh`, an ``(nb, nx, ny)``
+:class:`.mesh.BatchMesh`): every batch replica holds ``B / nb``
+universes, each split over its ``(nx, ny)`` spatial mesh, as 2D tiles
+(:func:`batch_sharding`) or as ``nx*ny`` full-width row bands
+(:func:`batch_band_sharding`); universes never exchange with each other.
+
+- :func:`make_multi_step_packed_batched_mesh` — plain torch on 2D tiles,
+  a one-deep two-phase exchange per generation;
+- :func:`make_multi_step_kernel_batched_mesh` — the counterpart of the
+  multi-device ``make_multi_step_pallas_batched``: per chunk of ``g``
+  generations a depth-``g`` row exchange and ONE launch of B2's slab form
+  per device over all of its (universe, band) pairs, each band with its
+  edge code, then the crop.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +51,15 @@ from ..models.rules import Rule
 from ..ops import cuda_stencil
 from ..ops.packed import step_packed_ext
 from ..ops.stencil import Topology
-from .halo import exchange_halo_stack
+from .halo import band_edge_codes, exchange_halo, exchange_halo_stack, exchange_rows
+from .mesh import (
+    BATCH_AXIS,
+    COL_AXIS,
+    ROW_AXIS,
+    BatchMesh,
+    ShardedGrid,
+    band_axis,
+)
 
 
 def _live(mask, grids: torch.Tensor) -> torch.Tensor:
@@ -205,3 +229,205 @@ def make_multi_step_paged(rule, tile_rows: Optional[int] = None,
         return tiles, changed, occupied
 
     return run
+
+
+# -- the batch mesh -----------------------------------------------------------
+
+
+def make_batch_mesh(shape: Tuple[int, int, int],
+                    devices: Optional[Sequence] = None) -> BatchMesh:
+    """A (b, x, y) mesh: ``nb`` batch replicas of an ``(nx, ny)`` spatial
+    mesh over ``devices`` (b-major, then x-major), by default every CUDA
+    device; without CUDA that default raises. A device may repeat."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; make_batch_mesh places a mesh "
+                "on the GPUs unless given devices -- pass devices=['cpu'] * n "
+                "for a mesh of CPU positions")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    nb, nx, ny = shape
+    if nb * nx * ny != len(devices):
+        raise ValueError(
+            f"mesh shape {shape} needs {nb * nx * ny} devices, have "
+            f"{len(devices)}")
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return BatchMesh(arr.reshape(nb, nx, ny))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSharding:
+    """Where a ``(B, H, W/32)`` batch goes on a batch mesh: 2D tiles of
+    every universe (``banded=False``, JAX ``P('b', 'x', 'y')``) or
+    ``nx*ny`` full-width row bands (``banded=True``, JAX ``P('b', ('x',
+    'y'), None)``). :func:`device_put` places a batch by it."""
+
+    mesh: BatchMesh
+    banded: bool
+
+
+def batch_sharding(mesh: BatchMesh) -> BatchSharding:
+    return BatchSharding(mesh, False)
+
+
+def batch_band_sharding(mesh: BatchMesh) -> BatchSharding:
+    """Placement for the batch x band-kernel runner on an ``(nb, nx, ny >
+    1)`` mesh: the rows of every universe split into nx*ny full-width
+    bands over the flattened spatial axes (the banded layout of
+    :func:`.mesh.device_put_sharded_grid`, batch axis in front)."""
+    return BatchSharding(mesh, True)
+
+
+def device_put(grids: torch.Tensor, sharding: BatchSharding) -> ShardedGrid:
+    """Place a ``(B, H, W/32)`` batch on a batch mesh: position ``(b, i,
+    j)`` holds universes ``[b*B/nb, (b+1)*B/nb)``, each cut to its tile or
+    band; each device's positions are stacked into one ``(k, B/nb, h,
+    w)`` tensor on that device. ``.gather()`` is the inverse."""
+    mesh = sharding.mesh
+    nb, nx, ny = (mesh.shape[a] for a in (BATCH_AXIS, ROW_AXIS, COL_AXIS))
+    B, H, W = grids.shape
+    per = nx * ny
+    if B % nb:
+        raise ValueError(f"batch {B} not divisible over {nb} replicas")
+    if sharding.banded:
+        if H % per:
+            raise ValueError(
+                f"grid rows {H} not divisible into {per} full-width bands "
+                f"over the flattened mesh")
+        h, w = H // per, W
+    else:
+        if H % nx or W % ny:
+            raise ValueError(
+                f"grid {(H, W)} not divisible by mesh ({nx}, {ny}); pad the "
+                "grid or pick a different mesh shape")
+        h, w = H // nx, W // ny
+    bl = B // nb
+
+    def block(p):
+        b, q = divmod(p, per)
+        if sharding.banded:
+            i, j = q, 0
+        else:
+            i, j = divmod(q, ny)
+        return grids[b * bl:(b + 1) * bl, i * h:(i + 1) * h,
+                     j * w:(j + 1) * w]
+
+    parts = [torch.stack([block(p) for p in positions]).to(device)
+             for device, positions in mesh.groups]
+    return ShardedGrid(mesh, tuple(parts), sharding.banded)
+
+
+def _mesh_live(mesh: BatchMesh, mask, batch: int) -> List[torch.Tensor]:
+    """Per device, the ``(k, B/nb, 1, 1)`` bool select of its universes
+    from a ``(B,)`` mask (numpy or tensor)."""
+    live = mask != 0 if isinstance(mask, torch.Tensor) else \
+        torch.from_numpy(np.asarray(mask) != 0)
+    nb = mesh.shape[BATCH_AXIS]
+    per = mesh.size // nb
+    if live.shape != (batch,):
+        raise ValueError(
+            f"mask of shape {tuple(live.shape)} for a batch of {batch}")
+    bl = batch // nb
+    return [torch.stack([live[(p // per) * bl:(p // per + 1) * bl]
+                         for p in positions]).to(device)[..., None, None]
+            for device, positions in mesh.groups]
+
+
+def _batch_of(state: ShardedGrid) -> int:
+    return state.parts[0].shape[1] * state.mesh.shape[BATCH_AXIS]
+
+
+def make_multi_step_packed_batched_mesh(
+    mesh: BatchMesh, rule: Rule, topology: Topology = Topology.TORUS,
+    masked: bool = False,
+) -> Callable:
+    """``(state, n) -> state`` over a batch placed by
+    :func:`batch_sharding` (2D tiles): per generation a one-deep
+    two-phase exchange within every replica and
+    :func:`..ops.packed.step_packed_ext` on every tile of every universe;
+    the multi-device ``make_multi_step_packed_batched``. With
+    ``masked=True``: ``(state, n, mask)``, mask-0 universes frozen."""
+
+    def run(state: ShardedGrid, n: int, mask=None) -> ShardedGrid:
+        if state.banded and mesh.shape[COL_AXIS] > 1:
+            raise ValueError("this runner takes 2D tiles (batch_sharding)")
+        live = None if mask is None else _mesh_live(mesh, mask,
+                                                    _batch_of(state))
+        parts = state.parts
+        for _ in range(int(n)):
+            out = [step_packed_ext(e, rule)
+                   for e in exchange_halo(parts, mesh, topology)]
+            parts = out if live is None else [
+                torch.where(lv, o, p) for lv, o, p in zip(live, out, parts)]
+        return state.with_parts(parts)
+
+    if masked:
+        return lambda state, n, mask: run(state, n, mask)
+    return lambda state, n: run(state, n)
+
+
+def make_multi_step_kernel_batched_mesh(
+    mesh: BatchMesh,
+    rule: Rule,
+    topology: Topology = Topology.TORUS,
+    gens_per_exchange: int = cuda_stencil.DEFAULT_BAND_GENS_PER_CALL,
+    masked: bool = False,
+) -> Callable:
+    """``(state, chunks) -> state`` advancing ``chunks * g`` generations
+    of a batch placed in row bands (:func:`batch_band_sharding`; on an
+    ``(nb, nx, 1)`` mesh :func:`batch_sharding` is the same layout): the
+    counterpart of the multi-device JAX ``make_multi_step_pallas_batched``.
+    Per chunk a depth-``g`` row exchange along the (flattened) band axis
+    of every replica carries all of a position's universes, then ONE
+    launch of B2's slab form per device over all of its (universe, band)
+    pairs (:func:`..ops.cuda_stencil.slab_step_kernel`; each band with
+    its edge code under DEAD, :func:`.halo.band_edge_codes`), then the
+    crop of ``g`` rows per side. On CPU tensors the slab form's plain
+    version runs. With ``masked=True``: ``(state, chunks, mask)``; the
+    select after every chunk keeps mask-0 universes bit-identical."""
+    g = cuda_stencil._depth(gens_per_exchange,
+                            cuda_stencil.DEFAULT_BAND_GENS_PER_CALL)
+    axis, _ = band_axis(mesh)
+    codes: dict = {}
+
+    def edge_codes(bl: int) -> Sequence:
+        if topology is not Topology.DEAD:
+            return [0] * len(mesh.groups)
+        if bl not in codes:
+            codes[bl] = band_edge_codes(mesh, repeat=bl)
+        return codes[bl]
+
+    def run(state: ShardedGrid, chunks: int, mask=None) -> ShardedGrid:
+        if not state.banded and mesh.shape[COL_AXIS] > 1:
+            raise ValueError(
+                "this runner takes full-width row bands "
+                "(batch_band_sharding)")
+        rows = state.parts[0].shape[-2]
+        if g > rows:
+            raise ValueError(
+                f"gens_per_exchange={g} exceeds the per-device band height "
+                f"{rows}")
+        live = None if mask is None else _mesh_live(mesh, mask,
+                                                    _batch_of(state))
+        parts = state.parts
+        bl = parts[0].shape[1]
+        for _ in range(int(chunks)):
+            out = []
+            for e, code in zip(exchange_rows(parts, mesh, topology,
+                                             axis=axis, depth=g),
+                               edge_codes(bl)):
+                k = e.shape[0]
+                stepped = cuda_stencil.slab_step_kernel(
+                    e.reshape(k * bl, *e.shape[2:]).contiguous(), g,
+                    rule=rule, topology=topology, edge_code=code)
+                out.append(stepped[:, g:-g].reshape(k, bl, rows, -1))
+            parts = out if live is None else [
+                torch.where(lv, o, p) for lv, o, p in zip(live, out, parts)]
+        return state.with_parts(p.contiguous() for p in parts)
+
+    if masked:
+        return lambda state, chunks, mask: run(state, chunks, mask)
+    return lambda state, chunks: run(state, chunks)

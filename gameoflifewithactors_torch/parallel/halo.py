@@ -20,6 +20,19 @@ boundary. A block is ``(..., rows, cols)``: words, cells or a ``(b, rows,
 cols)`` plane stack alike, so the JAX ``*_stack`` forms are these same
 functions. The exchange depth must not exceed a block's height.
 
+The split forms :func:`exchange_rows_parts` and
+:func:`exchange_cols_parts` take the strips to send instead of the
+blocks (the ghost-zone runner sends freshly stepped boundary rings).
+On a batch mesh (:class:`.mesh.BatchMesh`) every batch replica is its
+own spatial mesh: neighbours are found within it.
+
+Every exchange adds the bytes of the strips that move between *distinct*
+mesh positions to this thread's running total,
+:func:`exchanged_bytes`: a self-send on a size-1 TORUS axis and the
+zeros at a DEAD edge count nothing, as the JAX package's
+``collective_permute_bytes`` counts pairs of positions (not devices:
+two positions on one device still count).
+
 The one-band helpers :func:`exchange_rows_stack` and
 :func:`exchange_halo_stack` serve the batched serving lanes, whose batch
 members are independent universes, each its own single-band mesh.
@@ -27,12 +40,25 @@ members are independent universes, each its own single-band mesh.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.stencil import Topology
 from .mesh import COL_AXIS, ROW_AXIS, Mesh
+
+_MOVED = threading.local()
+
+
+def exchanged_bytes() -> int:
+    """This thread's running total of halo bytes moved between distinct
+    mesh positions; a measurement reads it before and after."""
+    return getattr(_MOVED, "total", 0)
+
+
+def _moved(nbytes: int) -> None:
+    _MOVED.total = exchanged_bytes() + nbytes
 
 
 def band_edge_code(nbands: int = 1, index: int = 0) -> int:
@@ -43,23 +69,29 @@ def band_edge_code(nbands: int = 1, index: int = 0) -> int:
     return (1 if index == 0 else 0) | (2 if index == nbands - 1 else 0)
 
 
-def band_edge_codes(mesh: Mesh) -> List[torch.Tensor]:
-    """Per device of ``mesh``, the ``(k,)`` int32 edge codes of the bands
-    it holds (flattened band axis, x-major), on that device: the slab
-    kernels' per-band operand. Built once per runner, so stepping reads no
-    code back to the host."""
-    nb = mesh.size
-    return [torch.tensor([band_edge_code(nb, p) for p in positions],
+def band_edge_codes(mesh: Mesh, repeat: int = 1) -> List[torch.Tensor]:
+    """Per device of ``mesh``, the ``(k * repeat,)`` int32 edge codes of
+    the bands it holds (flattened band axis, x-major; on a batch mesh the
+    bands of each replica), each repeated ``repeat`` times (a batch
+    mesh's universes per position), on that device: the slab kernels'
+    per-band operand. Built once per runner, so stepping reads no code
+    back to the host."""
+    nb = mesh.shape[ROW_AXIS] * mesh.shape[COL_AXIS]
+    return [torch.tensor([band_edge_code(nb, p % nb) for p in positions
+                          for _ in range(repeat)],
                          dtype=torch.int32, device=device)
             for device, positions in mesh.groups]
 
 
 def _sources(mesh: Mesh, axis, step: int, wrap: bool) -> List[Optional[int]]:
     """For every flat position, the flat position whose block sits
-    ``step`` places before it along ``axis`` (None past a DEAD edge)."""
+    ``step`` places before it along ``axis`` within its batch replica
+    (None past a DEAD edge)."""
     nx, ny = mesh.shape[ROW_AXIS], mesh.shape[COL_AXIS]
     out: List[Optional[int]] = []
-    for p in range(mesh.size):
+    for flat in range(mesh.size):
+        base, p = divmod(flat, nx * ny)
+        base *= nx * ny
         i, j = divmod(p, ny)
         if axis == ROW_AXIS:
             k, n = i - step, nx
@@ -74,8 +106,8 @@ def _sources(mesh: Mesh, axis, step: int, wrap: bool) -> List[Optional[int]]:
                 out.append(None)
                 continue
             k %= n
-        out.append(k * ny + j if axis == ROW_AXIS
-                   else i * ny + k if axis == COL_AXIS else k)
+        out.append(base + (k * ny + j if axis == ROW_AXIS
+                           else i * ny + k if axis == COL_AXIS else k))
     return out
 
 
@@ -88,7 +120,8 @@ def _neighbour_strips(parts: Sequence[torch.Tensor], mesh: Mesh,
     arrives by ``.to(device, non_blocking=True)``, a peer copy that only
     a machine with several GPUs performs; between positions of one device
     the same call returns the strip as it is, so one code path serves
-    both."""
+    both. The strips from other positions count in
+    :func:`exchanged_bytes`."""
     out = []
     for (device, positions), own in zip(mesh.groups, parts):
         pieces = []
@@ -98,10 +131,51 @@ def _neighbour_strips(parts: Sequence[torch.Tensor], mesh: Mesh,
                 pieces.append(torch.zeros_like(strip(own[:1])))
             else:
                 g, s = mesh.slot_of[q]
-                pieces.append(strip(parts[g][s:s + 1]).to(
-                    device, non_blocking=True))
+                piece = strip(parts[g][s:s + 1])
+                if q != p:
+                    _moved(piece.numel() * piece.element_size())
+                pieces.append(piece.to(device, non_blocking=True))
         out.append(torch.cat(pieces))
     return out
+
+
+def _parts_exchange(first: Sequence[torch.Tensor],
+                    second: Sequence[torch.Tensor], mesh: Mesh,
+                    topology: Topology, axis
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Per device, the strips the neighbours along ``axis`` send: the
+    ``second`` strips of the positions before (my north or west halo),
+    the ``first`` strips of the positions after (my south or east
+    halo)."""
+    wrap = topology is Topology.TORUS
+    before = _neighbour_strips(second, mesh, _sources(mesh, axis, 1, wrap),
+                               lambda t: t)
+    after = _neighbour_strips(first, mesh, _sources(mesh, axis, -1, wrap),
+                              lambda t: t)
+    return before, after
+
+
+def exchange_rows_parts(top: Sequence[torch.Tensor],
+                        bottom: Sequence[torch.Tensor], mesh: Mesh,
+                        topology: Topology, axis=ROW_AXIS
+                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Row phase of a split two-phase exchange: given, per device, MY top
+    and bottom strips ``(k, ..., d, w)``, return ``(north_halo,
+    south_halo)``, the strips my neighbours sent me. The traffic and
+    direction of :func:`exchange_rows` (my north halo is my north
+    neighbour's bottom strip), from strips the caller supplies."""
+    return _parts_exchange(top, bottom, mesh, topology, axis)
+
+
+def exchange_cols_parts(west_cols: Sequence[torch.Tensor],
+                        east_cols: Sequence[torch.Tensor], mesh: Mesh,
+                        topology: Topology
+                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Column phase of a split two-phase exchange: given, per device, MY
+    west and east columns ``(k, ..., h', d)`` of the row-extended tile
+    (so the corner blocks ride along, as in :func:`exchange_cols`),
+    return ``(west_halo, east_halo)``."""
+    return _parts_exchange(west_cols, east_cols, mesh, topology, COL_AXIS)
 
 
 def exchange_rows(parts: Sequence[torch.Tensor], mesh: Mesh,
@@ -141,6 +215,11 @@ def exchange_cols(ext: Sequence[torch.Tensor], mesh: Mesh,
     east = _neighbour_strips(ext, mesh, _sources(mesh, COL_AXIS, -1, wrap),
                              lambda t: t[..., :depth])
     return [torch.cat([a, t, b], dim=-1) for a, t, b in zip(west, ext, east)]
+
+
+# a block's leading dimensions are free, so the stacked plane form is the
+# same function
+exchange_cols_stack = exchange_cols
 
 
 def exchange_halo(parts: Sequence[torch.Tensor], mesh: Mesh,

@@ -20,9 +20,15 @@ Two layouts, as in JAX:
   x-major into ``nx*ny`` full-width row bands, band ``i*ny + j`` on
   position ``(i, j)`` -- the layout of the band-kernel runners.
 
+A :class:`BatchMesh` is the ``(nb, nx, ny)`` form with a leading batch
+axis (``BATCH_AXIS``): ``nb`` replicas of an ``(nx, ny)`` spatial mesh,
+each holding a slice of a batch of universes (``parallel.batched``).
+Its flat positions are ``b``-major, then x-major, and the halo exchange
+finds neighbours within a replica.
+
 Left out: the multi-slice device ordering (``factor2d_sliced``,
 ``order_devices_for_slices``), which the multi-process layer takes with
-``multihost`` (ROADMAP A12).
+``multihost`` (ROADMAP A12, multi-host).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..ops.bitpack import WORD
 
 ROW_AXIS = "x"  # shards grid rows
 COL_AXIS = "y"  # shards grid columns (packed: word columns)
+BATCH_AXIS = "b"  # a batch mesh's replicas (universes, no exchange)
 
 
 def factor2d(n: int) -> Tuple[int, int]:
@@ -59,10 +66,10 @@ class Mesh:
 
     def __init__(self, devices):
         given = np.asarray(devices, dtype=object)
-        if given.ndim != 2 or given.size == 0:
+        if given.ndim != len(self.axis_names) or given.size == 0:
             raise ValueError(
-                f"a mesh is a non-empty 2D array of devices, got shape "
-                f"{given.shape}")
+                f"a mesh is a non-empty {len(self.axis_names)}D array of "
+                f"devices, got shape {given.shape}")
         arr = np.empty(given.shape, dtype=object)
         for idx in np.ndindex(arr.shape):
             arr[idx] = _normalise(given[idx])
@@ -71,7 +78,7 @@ class Mesh:
             raise ValueError(
                 f"a mesh holds CUDA devices or CPU devices, not {sorted(types)}")
         self.devices = arr
-        self.shape = {ROW_AXIS: arr.shape[0], COL_AXIS: arr.shape[1]}
+        self.shape = dict(zip(self.axis_names, arr.shape))
         groups: dict = {}
         for p, d in enumerate(arr.flat):   # x-major flat positions
             groups.setdefault(d, []).append(p)
@@ -87,8 +94,17 @@ class Mesh:
         return self.devices.size
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape[ROW_AXIS]}x{self.shape[COL_AXIS]}, "
+        dims = "x".join(str(n) for n in self.shape.values())
+        return (f"{type(self).__name__}({dims}, "
                 f"{[str(d) for d in self.devices.flat]})")
+
+
+class BatchMesh(Mesh):
+    """An ``(nb, nx, ny)`` array of devices, axes ``(BATCH_AXIS,
+    ROW_AXIS, COL_AXIS)``: ``nb`` replicas of an ``(nx, ny)`` spatial
+    mesh. Flat positions run b-major, then x-major."""
+
+    axis_names = (BATCH_AXIS, ROW_AXIS, COL_AXIS)
 
 
 def _normalise(device) -> torch.device:
@@ -206,16 +222,25 @@ class ShardedGrid:
                 (self.mesh.slot_of[p] for p in range(self.mesh.size))]
 
     def gather(self) -> torch.Tensor:
-        """The inverse of :func:`device_put_sharded_grid`: the global
-        tensor, rebuilt on the mesh's first device."""
+        """The inverse of :func:`device_put_sharded_grid` (and of
+        ``batched.device_put``): the global tensor, rebuilt on the mesh's
+        first device."""
         home = self.mesh.groups[0][0]
         blocks = [b.to(home) for b in self.blocks()]
-        if self.banded:
-            return torch.cat(blocks, dim=-2)
         ny = self.mesh.shape[COL_AXIS]
-        rows = [torch.cat(blocks[i:i + ny], dim=-1)
-                for i in range(0, len(blocks), ny)]
-        return torch.cat(rows, dim=-2)
+        per = self.mesh.shape[ROW_AXIS] * ny   # positions of one replica
+
+        def spatial(bl):
+            if self.banded:
+                return torch.cat(bl, dim=-2)
+            rows = [torch.cat(bl[i:i + ny], dim=-1)
+                    for i in range(0, len(bl), ny)]
+            return torch.cat(rows, dim=-2)
+
+        if BATCH_AXIS not in self.mesh.shape:
+            return spatial(blocks)
+        return torch.cat([spatial(blocks[i:i + per])
+                          for i in range(0, len(blocks), per)])
 
 
 def device_put_sharded_grid(grid: torch.Tensor, mesh: Mesh,

@@ -113,13 +113,14 @@ def test_unported_families_and_backends_raise():
     from gameoflifewithactors_torch.parallel.mesh import make_mesh
 
     # the sparse and paged backends are ported (tests/test_torch_sparse.py,
-    # tests/test_torch_paged.py); their sharded form is not
+    # tests/test_torch_paged.py), and the sparse one's sharded form
+    # (tests/test_torch_engine_mesh_paths.py)
     for backend in ("sparse", "paged"):
         assert tg.Engine(np.zeros((8, 32), np.uint8), "conway", device="cpu",
                          backend=backend).backend == backend
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tg.Engine(np.zeros((8, 32), np.uint8), "conway", device="cpu",
-                  mesh=make_mesh((1, 1), ["cpu"]), backend="sparse")
+    assert tg.Engine(np.zeros((8, 32), np.uint8), "conway", device="cpu",
+                     mesh=make_mesh((1, 1), ["cpu"]),
+                     backend="sparse").active_tiles() == 0
     # elementary (1D) rules are ported, but the 2D Engine refuses them with
     # the JAX engine's ValueError, naming this package's CLI
     for rule in ["W110", "rule30"]:

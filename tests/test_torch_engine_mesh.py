@@ -187,10 +187,14 @@ def test_gens_per_exchange_and_unported_combinations():
             kwargs["mesh"] = tm
         with pytest.raises(err, match=match):
             tg.Engine(cells, rule, **kwargs)
+    # mesh + "sparse" and mesh + "packed" + G > 1 are ported: they build
+    # the runners JAX builds
     for kwargs in [dict(backend="sparse"),
                    dict(backend="packed", gens_per_exchange=4)]:
-        with pytest.raises(NotImplementedError, match="A12"):
-            tg.Engine(cells, "conway", mesh=tm, device="cpu", **kwargs)
+        te = tg.Engine(cells, "conway", mesh=tm, device="cpu", **kwargs)
+        je = jg.Engine(cells, "conway", mesh=jm, **kwargs)
+        assert (te.backend, te.gens_per_exchange, te._ghost_pipeline) == \
+            (je.backend, je.gens_per_exchange, je._ghost_pipeline)
     # the paged backend is single-device: the JAX engine's ValueError
     with pytest.raises(ValueError) as j_err:
         jg.Engine(cells, "conway", mesh=jm, backend="paged")

@@ -1,7 +1,9 @@
 """The slab forms of kernels B3 and B4, B2's per-band edge codes and the
 sharded engine on a card: each kernel against its plain version, bit for
-bit, and the band path against the single-device kernel path. Each test
-skips without a CUDA device.
+bit, and the band path against the single-device kernel path; the
+ghost-zone and deep runners, the sharded sparse engine and the batch mesh
+(B2's slab form) on meshes of one card against the single-device
+engines. Each test skips without a CUDA device.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest tests/test_torch_gpu_mesh.py``.
@@ -17,8 +19,14 @@ from gameoflifewithactors_torch.models.rules import parse_rule
 from gameoflifewithactors_torch.ops import cuda_stencil
 from gameoflifewithactors_torch.ops.packed_generations import n_planes
 from gameoflifewithactors_torch.ops.stencil import Topology
+from gameoflifewithactors_torch.models import seeds
+from gameoflifewithactors_torch.ops import bitpack
+from gameoflifewithactors_torch.parallel import batched, sharded
 from gameoflifewithactors_torch.parallel.batched import multi_step_kernel_batched
-from gameoflifewithactors_torch.parallel.mesh import make_mesh
+from gameoflifewithactors_torch.parallel.mesh import (
+    device_put_sharded_grid,
+    make_mesh,
+)
 
 from chip_smoke import GEN_RULES, ltl_every_form   # B3's rule paths, B4's forms
 
@@ -156,3 +164,86 @@ def test_coordinator_with_a_mesh_defaults_to_the_card():
     c.run(10)
     assert c.engine.backend == "cuda" and c.population() == 5
     assert c.engine.state.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["torus", "dead"])
+def test_ghost_and_deep_on_one_card_match_b1(topology):
+    """G = 8 on a (2, 2) mesh of the card: the engine's ghost pipeline
+    (with a remainder) and the deep runner equal B1; the halo bytes'
+    model equals the measured figure."""
+    _need_cuda()
+    top = Topology(topology)
+    mesh = make_mesh((2, 2), ["cuda"] * 4)
+    cells = (np.random.default_rng(3).random((1024, 2048)) < 0.4).astype(
+        np.uint8)
+    truth = Engine(cells, "B3/S23", topology=top, backend="cuda")
+    truth.step(83)
+    engine = Engine(cells, "B3/S23", topology=top, backend="packed",
+                    mesh=mesh, gens_per_exchange=8)
+    assert engine._ghost_pipeline
+    engine.step(83)
+    assert torch.equal(engine.state, truth.state)
+    assert engine.halo_bytes_per_gen("model") == \
+        engine.halo_bytes_per_gen("measured")
+    rule = parse_rule("B3/S23")
+    state = device_put_sharded_grid(bitpack.pack(torch.from_numpy(cells)
+                                                 .cuda()), mesh)
+    deep = sharded.make_multi_step_packed_deep(mesh, rule, top, 8)
+    pergen = sharded.make_multi_step_packed(mesh, rule, top)
+    assert torch.equal(pergen(deep(state, 10), 3).gather(), truth.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["torus", "dead"])
+def test_sharded_sparse_on_one_card_matches_the_kernels(topology):
+    """A Gosper gun (B1) and a brain blob (B3) on the sparse engine of a
+    (2, 2) mesh of the card, with its overflow branch at capacity 2."""
+    _need_cuda()
+    top = Topology(topology)
+    mesh = make_mesh((2, 2), ["cuda"] * 4)
+    words = seeds.seeded_packed((2048, 2048), "gosper_gun", top=1000,
+                                left_word=31)
+    truth = Engine.from_packed(words, "B3/S23", topology=top, backend="cuda")
+    engine = Engine.from_packed(words, "B3/S23", topology=top,
+                                backend="sparse", mesh=mesh)
+    truth.step(300)
+    engine.step(300)
+    assert torch.equal(engine.state, truth.state)
+    assert 0 < engine.active_tiles() and engine._runner.stats["syncs"] == 300
+    cells = np.zeros((1024, 1024), np.uint8)
+    cells[480:560, 480:560] = np.random.default_rng(5).integers(0, 3, (80, 80))
+    for opts in (None, {"capacity": 2}):
+        truth = Engine(cells, "brain", topology=top, backend="cuda")
+        engine = Engine(cells, "brain", topology=top, backend="sparse",
+                        mesh=mesh, sparse_opts=opts)
+        truth.step(120)
+        engine.step(120)
+        assert torch.equal(engine.state, truth.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["torus", "dead"])
+def test_batch_mesh_launches_the_slab_form(topology):
+    """A (2, 2, 1) and a (1, 2, 2) batch mesh of the card: one B2
+    slab-form launch per chunk, masked universes frozen, equal to the
+    lane form."""
+    _need_cuda()
+    top = Topology(topology)
+    rule = parse_rule("B3/S23")
+    cells = (np.random.default_rng(9).random((8 * 256, 512)) < 0.35).astype(
+        np.uint8)
+    grids = bitpack.pack(torch.from_numpy(cells).cuda()).view(8, 256, 16)
+    mask = np.array([1, 0, 1, 1, 0, 1, 1, 1])
+    want = multi_step_kernel_batched(grids, 48, mask, rule=rule,
+                                     topology=top)
+    for shape, placement in [((2, 2, 1), batched.batch_sharding),
+                             ((1, 2, 2), batched.batch_band_sharding)]:
+        bmesh = batched.make_batch_mesh(shape, ["cuda"] * 4)
+        run = batched.make_multi_step_kernel_batched_mesh(
+            bmesh, rule, top, gens_per_exchange=8, masked=True)
+        before = cuda_stencil.SLAB_LAUNCHES
+        got = run(batched.device_put(grids, placement(bmesh)), 6, mask)
+        assert cuda_stencil.SLAB_LAUNCHES - before == 6
+        assert torch.equal(got.gather(), want)
+    assert torch.equal(want[1], grids[1])

@@ -178,8 +178,9 @@ def test_rejections_match_jax():
     with pytest.raises(ValueError, match="bit-plane stack"):
         sparse.SparseEngineState(words, parse_any("R2,C3,M1,S2..4,B3..4"))
     mesh = make_mesh((1, 1), devices=[torch.device("cpu")])
-    with pytest.raises(NotImplementedError, match="A12"):
-        Engine(zeros, "B3/S23", backend="sparse", device="cpu", mesh=mesh)
+    # the sharded form is ported (tests/test_torch_engine_mesh_paths.py)
+    assert Engine(zeros, "B3/S23", backend="sparse", device="cpu",
+                  mesh=mesh).active_tiles() == 0
     with pytest.raises(ValueError, match="single-device"):
         Engine(zeros, "B3/S23", backend="paged", device="cpu", mesh=mesh)
     # "auto" never picks the activity-tiled backends
