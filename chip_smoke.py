@@ -70,7 +70,16 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    capacity and peak memory; and 64 masked 1024² B3/S23 universes on a (2,
    2, 1) batch mesh, TORUS and DEAD, 2000 generations: one launch of B2's
    slab form per chunk, equal to the lane form, ms per chunk beside the
-   lane form's.
+   lane form's. The observed and supervised run: the CLI with
+   ``--telemetry-out`` and ``--profile-sample`` on the three 16384² main
+   paths, each report's roofline shares in (0, 1.05], its attribution
+   from the device tracks with B1, B3 or B4 as the top kernel, the duty
+   cycle, the idle gaps and the compile events, and a tick's cost under
+   telemetry (in turns); ``--supervise`` at 16384² B3/S23 with a
+   ``FaultPlan`` corrupt_region after generation 1000 (one restart, equal
+   to the unsupervised run, the seconds of saves, restores and stepping);
+   an induced stall at 4096² (one StallEvent, one restart, a flight
+   dump).
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -91,6 +100,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -98,8 +108,17 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM published HBM3 rate
-INT32_LANES_PER_SM = 64      # 32-bit integer/logic results per SM per clock
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+try:
+    from gameoflifewithactors_torch.obs.cost import (  # noqa: F401
+        gen_ops_per_word, ltl_ops_per_word, ltl_sliding_ops_per_word,
+        ltl_tree_ops_per_word, ops_per_word)
+    from gameoflifewithactors_torch.utils.profiling import device_activity
+except ImportError:
+    print("chip_smoke: gameoflifewithactors_torch is not beside this script",
+          file=sys.stderr)
+    sys.exit(1)
+
 MAIN_SHAPE = (16384, 16384)
 MAIN_GENERATIONS = 300       # not a multiple of g: the shorter launch runs too
 MAIN_TICK = 100
@@ -123,163 +142,6 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def ops_per_word(rule) -> int:
-    """Bitwise operations one generation of a B/S rule needs per 32-cell
-    word, a three-input logic op or a funnel shift counting as one: 2
-    shifts for the west/east planes, 4 for the row sums T and S, 8 for the
-    4-bit count T_n + S + T_s, 2 per count-equality plane the rule tests,
-    one OR per further born or survive count, and the final select."""
-    return (2 + 4 + 8 + 2 * len(rule.born | rule.survive)
-            + max(len(rule.born) - 1, 0) + max(len(rule.survive) - 1, 0) + 1)
-
-
-def gen_ops_per_word(rule) -> int:
-    """The same count for one generation of a Generations rule on b =
-    n_planes(C) bit-planes, from packed_generations.step_planes_slab: the
-    alive plane (an OR of b-1 planes and an and-not, ceil((b-1)/2)
-    three-input ops), the 14 of the 3x3 count, the born and keep masks as
-    for a B/S rule (2 per count-equality plane, an OR per further count),
-    and transition_planes: the nonzero OR (ceil((b-1)/2)), kept, one and
-    aging (3), the +1 carry chain (2 per plane past the first), the
-    equality with C where C != 2**b (ceil((b-1)/2)), the b masked outputs
-    and the OR of `one` into plane 0."""
-    b = max(1, (rule.states - 1).bit_length())
-    fold = -(-(b - 1) // 2)
-    masks = (2 * len(rule.born | rule.survive) + max(len(rule.born) - 1, 0)
-             + max(len(rule.survive) - 1, 0))
-    eq = fold if rule.states != 1 << b else 0
-    return fold + 14 + masks + fold + 3 + 2 * (b - 1) + eq + b + 1
-
-
-def _csa_ops(n: int):
-    """(planes, ops) of packed.bit_sliced_sum over n one-bit planes: full
-    and half adders, 2 ops each."""
-    planes = ops = 0
-    while n:
-        carries = 0
-        while n >= 3:
-            n, carries, ops = n - 2, carries + 1, ops + 2
-        if n == 2:
-            n, carries, ops = 1, carries + 1, ops + 2
-        planes += 1
-        n = carries
-    return planes, ops
-
-
-def _rule_ops(rule, counts: int, comparators: int, m0: bool = True) -> int:
-    """The interval rule on a ``counts``-plane count: M0's subtraction (2
-    ops per plane, where ``m0`` says it is made), ``comparators``
-    comparators of 1 op per plane, an and-not per interval and an OR per
-    further interval of each set, and the final select."""
-    ops = 2 * counts if m0 and not rule.middle else 0
-    ops += comparators * counts
-    for intervals in (rule.born_intervals, rule.survive_intervals):
-        ops += len(intervals) + max(len(intervals) - 1, 0)
-    return ops + 1
-
-
-def ltl_tree_ops_per_word(rule) -> int:
-    """The same count for one generation of a binary LtL rule, walking
-    packed_ltl's formulation with only the plane counts of its bit-sliced
-    numbers: box_counts_packed (a carry-save sum of the 2r+1 row-shifted
-    planes, full and half adders 2 ops each, then _sliding_sum_bs's two
-    one-sided doubling trees of funnel shifts (1 op per plane) and ripple
-    adds (2 ops per bit)) or diamond_counts_packed (r+1 shrinking sliding
-    sums of pre-added row pairs), then _apply_intervals (M0's subtraction,
-    2 ops per plane; a comparator per interval bound inside the count's
-    range, 1 op per plane; an and-not per interval, an OR per further
-    interval; the final select)."""
-    ops = 0
-
-    def csa(n: int) -> int:             # packed.bit_sliced_sum of n planes
-        nonlocal ops
-        planes, more = _csa_ops(n)
-        ops += more
-        return planes
-
-    def add(a: int, b: int) -> int:     # packed_ltl.bs_add
-        nonlocal ops
-        ops += 2 * max(a, b)
-        return max(a, b) + 1
-
-    def one_sided(num: int, r: int) -> int:   # _one_sided_sum_bs
-        nonlocal ops
-        ops += num
-        pows, m = {1: num}, 1
-        while 2 * m <= r:
-            ops += pows[m]
-            pows[2 * m] = add(pows[m], pows[m])
-            m *= 2
-        acc, offset = None, 0
-        for p2 in sorted(pows, reverse=True):
-            while r - offset >= p2:
-                ops += pows[p2] if offset else 0
-                acc = pows[p2] if acc is None else add(acc, pows[p2])
-                offset += p2
-        return acc
-
-    def sliding(num: int, k: int) -> int:     # _sliding_sum_bs
-        r = (k - 1) // 2
-        if r == 0:
-            return num
-        return add(add(one_sided(num, r), one_sided(num, r)), num)
-
-    r = rule.radius
-    if rule.neighborhood == "M":
-        counts = sliding(csa(2 * r + 1), 2 * r + 1)
-    else:
-        nbits = (2 * r * r + 2 * r + 1).bit_length()
-        counts = None
-        for d in range(r + 1):
-            term = sliding(1 if d == 0 else csa(2), 2 * (r - d) + 1)
-            counts = term if counts is None else min(add(counts, term), nbits)
-    comparators = sum(1 for intervals in (rule.born_intervals,
-                                          rule.survive_intervals)
-                      for lo, hi in intervals for c in (lo, hi + 1)
-                      if 0 < c < 1 << counts)
-    return ops + _rule_ops(rule, counts, comparators)
-
-
-def ltl_sliding_ops_per_word(rule) -> int:
-    """The same count by the sliding column, the order of kernel B4 and of
-    packed_ltl.box_counts_sliding. Box: each row's horizontal window once
-    (2r funnel shifts, 1 op each, and the carry-save sum of the 2r+1
-    planes), added to a running count of C = bit_length((2r+1)^2) planes
-    and the leaving row's window subtracted (2 ops per count plane each);
-    diamond: the 2r+1 row windows of half-width r - |dy| summed directly
-    (the same windows, 2r ripple adds of 2 ops per count plane). Then the
-    rule on the distinct boundaries of both sets, shared between them: one
-    comparator of 1 op per count plane for each boundary inside the
-    count's range, and the and-nots, ORs and select of _rule_ops. M0 costs
-    nothing: its survival boundaries move up by one instead
-    (cuda_stencil._ltl_rule_encoding)."""
-    r = rule.radius
-
-    def window(a: int) -> int:
-        return 2 * a + _csa_ops(2 * a + 1)[1]
-
-    if rule.neighborhood == "M":
-        counts = ((2 * r + 1) ** 2).bit_length()
-        ops = window(r) + 2 * (2 * counts)
-    else:
-        counts = (2 * r * r + 2 * r + 1).bit_length()
-        ops = sum(window(r - abs(dy)) for dy in range(-r, r + 1)) \
-            + 2 * r * 2 * counts
-    shift = 0 if rule.middle else 1
-    bounds = {c for lo, hi in rule.born_intervals for c in (lo, hi + 1)} | {
-        c + shift for lo, hi in rule.survive_intervals for c in (lo, hi + 1)}
-    return ops + _rule_ops(rule, counts,
-                           sum(1 for c in bounds if 0 < c < 1 << counts), m0=False)
-
-
-def ltl_ops_per_word(rule) -> int:
-    """The least bitwise operations one generation of a binary LtL rule
-    needs per 32-cell word by a formulation the repo has: the JAX doubling
-    tree (:func:`ltl_tree_ops_per_word`) or the sliding column
-    (:func:`ltl_sliding_ops_per_word`)."""
-    return min(ltl_tree_ops_per_word(rule), ltl_sliding_ops_per_word(rule))
 
 
 def sass_counts(so_path: str, nvcc: str):
@@ -1286,31 +1148,6 @@ def _tiled_run(make, n: int):
     return engine, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() - base
 
 
-def _device_activity(engine, n: int):
-    """(device ops per generation, device-busy ms per generation) of ``n``
-    more generations under ``torch.profiler``: every kernel, copy and fill
-    the card ran, by ``key_averages``; (None, None) where the profiler
-    records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.step(n)
-        engine.block_until_ready()
-    ops, busy_us = 0, 0.0
-    for row in prof.key_averages():
-        t = getattr(row, "self_device_time_total", None)
-        if t is None:
-            t = getattr(row, "self_cuda_time_total", 0.0)
-        if t > 0:
-            ops += row.count
-            busy_us += t
-    if busy_us == 0:
-        return None, None
-    return ops / n, busy_us / 1e3 / n
-
-
 def tiled_phase(cs, card: str) -> dict:
     """Phase 3 for the activity-tiled engines (``ops/sparse.py``, ``memory/``;
     plain torch: no TPU kernel serves them, and they launch none of
@@ -1366,7 +1203,7 @@ def tiled_phase(cs, card: str) -> dict:
                "wall": wall, "build_s": build_s}
         # after the timed run and its result: 64 more generations under the
         # profiler, for the card's share of a generation
-        ops, busy = _device_activity(engine, 64)
+        ops, busy = device_activity(engine, 64)
         rec["device_ops_per_gen"], rec["device_ms_per_gen"] = ops, busy
         activity = "device activity not measured (no device time in the " \
             "profile)" if busy is None else (
@@ -1828,6 +1665,247 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
     return out
 
 
+OBSERVE_GENERATIONS = 2000      # each observed main path: one tick
+OBSERVE_CHECKPOINT_EVERY = 1000  # the supervised run: two chunks
+OBSERVE_PATHS = [  # (kernel, --rule, the kernel function's name in a trace)
+    ("life_packed", "B3/S23", "life_packed_kernel"),
+    ("life_generations", "brain", "life_generations_kernel"),
+    ("life_ltl", "bosco", "ltl_kernel")]
+STALL_SHAPE = (4096, 4096)
+STALL_DEADLINE = 0.5            # seconds; the induced stall sleeps 1.0
+
+
+def observe_phase(cs, card: str, main_rates: dict) -> dict:
+    """Phase 3 for the observed and supervised run: (a) the CLI with
+    ``--telemetry-out`` and ``--profile-sample`` on the three 16384²
+    main paths (the report's roofline shares, the profiler's device-track
+    attribution, its top kernel, the duty cycle and idle gaps, the compile
+    events; each path's launches counted from 0); (b) ``--supervise`` at
+    16384² B3/S23 (its configuration through ``SimulationConfig``, the
+    CLI's construction path) with one ``FaultPlan`` corrupt_region after
+    generation 1000, against an unsupervised run of the same seed bit for
+    bit, with the seconds of saves, restores and stepping; (c) an induced
+    stall past the watchdog's deadline at 4096²: one StallEvent, one
+    restart, a flight dump on disk. Returns the records."""
+    import dataclasses
+
+    import torch
+
+    from gameoflifewithactors_torch.cli import main as cli_main
+    from gameoflifewithactors_torch.config import from_args
+    from gameoflifewithactors_torch.obs import flight, spans, watchdog
+    from gameoflifewithactors_torch.obs.report import RunReport
+    from gameoflifewithactors_torch.resilience import (
+        FaultEvent, FaultPlan, RestartPolicy, Supervisor, apply_fault)
+    from gameoflifewithactors_torch.utils.metrics import (BufferSink,
+                                                         MetricsLogger)
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    side = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
+    out = {}
+    # (a) telemetry on the three main paths, through the CLI in-process
+    for kernel, spec, marker in OBSERVE_PATHS:
+        path = os.path.join(work, f"{kernel}.json")
+        reset_launches(cs)
+        rc = cli_main(["--device", "cuda", "--rule", spec, "--grid", side,
+                       "--seed", "random", "--rng-seed", "1", "--steps",
+                       str(OBSERVE_GENERATIONS), "--telemetry-out", path,
+                       "--profile-sample", "5"])
+        counts = launches(cs)
+        check(rc == 0, f"observed {spec} run exited {rc}")
+        check(counts[kernel] > 0 and all(
+            v == 0 for k, v in counts.items() if k != kernel),
+              f"observed {spec} run launched {counts}")
+        rep = RunReport.load(path)
+        roof = rep.roofline or {}
+        frac = roof.get("achieved_fraction") or {}
+        check(set(frac) == {"of_hbm_bandwidth", "of_int_op_peak"}
+              and all(0 < v <= 1.05 for v in frac.values()),
+              f"{spec} roofline shares {frac}")
+        prof = rep.profile or {}
+        check(prof.get("source") == "device_tracks",
+              f"{spec} attribution came from {prof.get('source')!r}, not "
+              "the device tracks")
+        shares = prof.get("op_class_fraction") or {}
+        check(shares and all(0 <= v <= 1.05 for v in shares.values()),
+              f"{spec} op-class shares {shares}")
+        top = (prof.get("top_kernels") or [["", 0]])[0][0]
+        check(marker in top, f"{spec} top kernel {top!r} is not {marker}")
+        duty = prof.get("device_duty_cycle")
+        check(duty is not None and 0 < duty <= 1.0, f"{spec} duty {duty}")
+        gaps = prof.get("idle_gaps_us") or []
+        step = rep.step_metrics[0]
+        rate = step["cell_updates_per_sec"]
+        kinds = {}
+        for ev in rep.compile_events:
+            kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
+        ratio = rate / main_rates[spec]
+        print(f"observed {spec} {side} (CLI --telemetry-out --profile-sample "
+              f"5, {OBSERVE_GENERATIONS} generations in one tick, "
+              f"{counts[kernel]} {kernel} launches): roofline "
+              f"{frac['of_int_op_peak']:.4f} of the integer-op peak "
+              f"({roof['peak_modelled']['int_ops_per_sec']:.4e} ops/s), "
+              f"{frac['of_hbm_bandwidth']:.4f} of HBM "
+              f"({roof['peak_modelled']['hbm_gbps']:.1f} GB/s from the "
+              f"device); stencil {shares.get('stencil', 0):.4f} of device "
+              f"time ({prof['windows']} window(s)), top kernel {top}; "
+              f"device busy {duty:.4f} of its span, longest idle gaps "
+              f"{gaps[:3]} us; {rate:.4e} cell-updates/s, "
+              f"{ratio:.4f} of phase 3's untraced tick; compile events "
+              f"{kinds or 'none'} ({rep.compile_seconds_total:.3f} s)  "
+              f"[{card}]")
+        out[spec] = {"int_share": frac["of_int_op_peak"],
+                     "hbm_share": frac["of_hbm_bandwidth"],
+                     "stencil": shares.get("stencil", 0), "duty": duty,
+                     "gaps": gaps, "rate": rate, "ratio": ratio}
+    # what the session costs a tick: one B3/S23 coordinator, 2000-generation
+    # ticks with a plain metrics logger (each syncs), under a RunTelemetry
+    # session without the profiler (spans, watchdog, flight tape) and
+    # with a profiler window open, in turns, four of each
+    from gameoflifewithactors_torch import GridCoordinator
+    from gameoflifewithactors_torch.obs.report import begin_run_telemetry
+
+    coord = GridCoordinator(MAIN_SHAPE, "B3/S23", random_fill=0.5,
+                            rng_seed=1, device="cuda")
+    coord.run(OBSERVE_GENERATIONS)
+    walls = {"plain": [], "session": [], "profiled": []}
+    for kind in ["plain", "session", "profiled", "profiled", "session",
+                 "plain"] * 2:
+        if kind == "plain":
+            sink = BufferSink()
+            coord.metrics = MetricsLogger(sink)
+            coord.tick(OBSERVE_GENERATIONS)
+            walls[kind].append(sink.records[-1].wall_seconds)
+        else:
+            coord.metrics = None
+            telem = begin_run_telemetry(
+                stall_deadline=60.0,
+                profile_sample=5.0 if kind == "profiled" else None,
+                flight_path=os.path.join(work, "overhead.flight.jsonl"))
+            telem.attach(coord)
+            coord.tick(OBSERVE_GENERATIONS)
+            rep = telem.finish(engine=coord.engine)
+            walls[kind].append(rep.step_metrics[-1]["wall_seconds"])
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"telemetry on a {side} B3/S23 tick of {OBSERVE_GENERATIONS} "
+          f"generations, 4 ticks of each in turns: plain "
+          f"{walls['plain']} s; RunTelemetry without the profiler "
+          f"{walls['session']} s; with a profiler window open "
+          f"{walls['profiled']} s; medians {med['plain']:.5f} / "
+          f"{med['session']:.5f} ({med['session'] / med['plain'] - 1:+.2%})"
+          f" / {med['profiled']:.5f} s "
+          f"({med['profiled'] / med['plain'] - 1:+.2%})  [{card}]")
+    plain_s, telem_s = med["plain"], med["profiled"]
+    out["telemetry_overhead"] = telem_s / plain_s - 1
+    del coord
+    t_a = time.perf_counter() - t_phase
+
+    # (b) supervision at full width: one corrupt_region after gen 1000
+    ck = os.path.join(work, "supervised.npz")
+    argv = ["--device", "cuda", "--grid", side, "--seed", "random",
+            "--rng-seed", "1", "--steps", str(OBSERVE_GENERATIONS)]
+    cfg, _ = from_args(argv + ["--supervise", "--checkpoint", ck,
+                               "--checkpoint-every",
+                               str(OBSERVE_CHECKPOINT_EVERY)])
+    coord, _ = cfg.build()
+    sink = BufferSink()
+    coord.metrics = MetricsLogger(sink)   # each chunk syncs: honest seconds
+    drawn = FaultPlan.generate(11, workers=1, horizon=OBSERVE_GENERATIONS,
+                               faults_per_worker=0,
+                               ensure_kinds=["corrupt_region"]).events[0]
+    event = dataclasses.replace(drawn, at_gen=OBSERVE_CHECKPOINT_EVERY)
+    sup = Supervisor(coord, checkpoint_path=cfg.checkpoint,
+                     checkpoint_every=cfg.checkpoint_every,
+                     policy=RestartPolicy(max_restarts=cfg.max_restarts))
+    fired = []
+
+    def before_chunk(gen):
+        if gen >= event.at_gen and not fired:
+            fired.append(apply_fault(sup, event))
+
+    sup.before_chunk = before_chunk
+    spans.TRACER.clear()
+    reset_launches(cs)
+    t0 = time.perf_counter()
+    stats = sup.run(cfg.steps)
+    wall = time.perf_counter() - t0
+    counts = launches(cs)
+    phases = spans.TRACER.phase_seconds()
+    check(fired == ["corrupt_region"] and stats["restarts"] == 1
+          and stats["restarts_by_cause"] == {"fault:corrupt_region": 1},
+          f"supervised run stats {stats}")
+    check(counts["life_packed"] > 0, f"supervised run launched {counts}")
+    plain, _ = from_args(argv)[0].build()
+    plain.run(OBSERVE_GENERATIONS)
+    check(torch.equal(coord.engine.state, plain.engine.state),
+          "the supervised run's grid differs from the unsupervised run's")
+    saves = phases.get("supervisor.checkpoint", {})
+    restores = phases.get("supervisor.restart", {})
+    stepping = sum(m.wall_seconds for m in sink.records)
+    print(f"supervised {side} B3/S23 TORUS, {OBSERVE_GENERATIONS} "
+          f"generations, --checkpoint-every {OBSERVE_CHECKPOINT_EVERY}, "
+          f"FaultPlan corrupt_region {event.params} after generation "
+          f"{event.at_gen}: restarts {stats['restarts']} "
+          f"{stats['restarts_by_cause']}, grid == the unsupervised run's; "
+          f"{wall:.4f} s: saves {saves.get('total_s', 0):.4f} s "
+          f"(x{saves.get('count', 0)}), restores "
+          f"{restores.get('total_s', 0):.4f} s (x{restores.get('count', 0)}),"
+          f" stepping {stepping:.4f} s ({len(sink.records)} ticks, "
+          f"{counts['life_packed']} B1 launches)  [{card}]")
+    out["supervised"] = {"wall": wall, "saves": saves.get("total_s", 0),
+                         "n_saves": saves.get("count", 0),
+                         "restores": restores.get("total_s", 0),
+                         "stepping": stepping}
+    del coord, plain
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # (c) a stall past the watchdog's deadline at 4096^2
+    dump = os.path.join(work, "stall.flight.jsonl")
+    wd = watchdog.arm(watchdog.StallWatchdog(STALL_DEADLINE))
+    fr = flight.FlightRecorder(dump)
+    fr.install(watchdog=wd)
+    flight.arm(fr)
+    try:
+        cfg, _ = from_args(["--device", "cuda", "--grid",
+                            f"{STALL_SHAPE[0]}x{STALL_SHAPE[1]}", "--seed",
+                            "random", "--steps", "300", "--supervise",
+                            "--checkpoint", os.path.join(work, "stall.npz"),
+                            "--checkpoint-every", "100"])
+        coord, _ = cfg.build()
+        coord.metrics = MetricsLogger(BufferSink())
+        sup = Supervisor(coord, checkpoint_path=cfg.checkpoint,
+                         checkpoint_every=cfg.checkpoint_every)
+        stall = FaultEvent(worker=0, at_gen=100, kind="stall")
+        sup.before_chunk = lambda gen: (
+            apply_fault(sup, stall, stall_seconds=2 * STALL_DEADLINE)
+            if gen == stall.at_gen and not sup.stats()["restarts"] else None)
+        stats = sup.run(cfg.steps)
+        check(len(wd.events) == 1 and stats["restarts"] == 1
+              and stats["restarts_by_cause"] == {"fault:stall": 1},
+              f"stall run: {len(wd.events)} stall events, stats {stats}")
+        check(os.path.exists(dump), f"no stall flight dump at {dump}")
+        header = flight.load_dump(dump)["flight"]
+        check("stall" in header["reason"], f"flight dump header {header}")
+        ev = wd.events[0]
+        print(f"stall {STALL_SHAPE[0]}^2: one StallEvent ({ev.label}, "
+              f"{ev.elapsed_seconds:.3f} s past a {ev.deadline_seconds} s "
+              f"deadline, last span {ev.last_completed_span}), one restart "
+              f"{stats['restarts_by_cause']}, flight dump "
+              f"{os.path.getsize(dump)} bytes ({header['reason']!r})  "
+              f"[{card}]")
+    finally:
+        flight.disarm()
+        watchdog.disarm()
+    shutil.rmtree(work)
+    total = time.perf_counter() - t_phase
+    print(f"observed and supervised run phase: {total:.1f} s (telemetry "
+          f"{t_a:.1f}, supervision {t_b:.1f}, stall "
+          f"{total - t_a - t_b:.1f})  [{card}]")
+    out["seconds"] = total
+    return out
+
+
 def start_server(repo: str, build_dir: str) -> subprocess.Popen:
     """``python -m gameoflifewithactors_torch serve`` on the card, on an
     ephemeral port."""
@@ -2252,16 +2330,21 @@ def main() -> int:
     worst["life_slab"] = max([worst["life_slab"]] + [
         paths[f"batch mesh {t}"]["max_abs_err"] for t in ("torus", "dead")])
     stamp("ghost, deep, sharded sparse and the batch mesh")
+    observe_phase(cs, card, main_rates)
+    stamp("the observed and supervised run")
 
     # -- 4. timing at the main path's shape ------------------------------------
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    op_rate = sms * INT32_LANES_PER_SM * clock_hz
+    # the card's peaks, read from the device (the roofline's denominators)
+    from gameoflifewithactors_torch.obs.device import gpu_peaks
+
+    peaks = gpu_peaks(0)
+    op_rate = peaks["int_ops_per_sec"]
+    hbm_rate = peaks["hbm_gbps"] * 1e9
     cells = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     rows = []
 
     def bound(nbytes: float, ops: float):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / hbm_rate * 1e3
         ops_ms = ops / op_rate * 1e3
         return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
@@ -2280,8 +2363,10 @@ def main() -> int:
           f"({ms / g * 1e3:.2f} us/gen), "
           f"{cells * g / (ms / 1e3):.4e} cell-updates/s; bound {bound_ms:.5f} ms "
           f"(bytes {bytes_ms:.5f}, ops {ops_ms:.5f}: {ops_per_word(CONWAY)} "
-          f"ops/word/gen, {sms} SMs x {INT32_LANES_PER_SM} x "
-          f"{clock_hz / 1e6:.0f} MHz), {bound_ms / ms:.1%} of it  [{card}]")
+          f"ops/word/gen, {peaks['sms']} SMs x {peaks['int32_lanes_per_sm']} "
+          f"x {peaks['max_sm_clock_mhz']:.0f} MHz; HBM {peaks['hbm_gbps']:.2f} "
+          f"GB/s from the memory clock and bus), {bound_ms / ms:.1%} of it  "
+          f"[{card}]")
     print(f"B1 plain version (multi_step_reference, no yardstick): {plain_ms:.4f} "
           f"ms/launch; plain packed path (multi_step_packed, no yardstick): "
           f"{packed_ms:.4f} ms/generation  [{card}]")

@@ -10,6 +10,13 @@ each, and the objects are linked into its one library. Libraries go to
 ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Importing this module needs no ``nvcc``;
 a build that fails raises with the compiler's output.
+
+Every build and every first load in a process lands in
+:data:`.obs.compile.COMPILE_LOG`: a library that ``nvcc`` built as a
+``"cache_miss"`` event (its seconds are compile seconds, which
+``GridCoordinator.tick`` takes out of its wall time), one loaded from an
+existing file as ``"cache_hit"``. :func:`build_variant` builds a source
+under extra ``-D`` flags into a library of its own and loads nothing.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Sequence
+
+from .obs import compile as obs_compile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -73,10 +82,11 @@ def find_nvcc() -> str:
         "gameoflifewithactors_torch are built from source at first use")
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, defines: Sequence[str] = ()) -> str:
     """Where the build of ``csrc/<name>.cu`` for the current source (and
-    the current ``csrc/*.cuh`` headers it may include) lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    the current ``csrc/*.cuh`` headers it may include) lives; ``defines``
+    are extra ``-D`` flags of a variant build."""
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     digest.update(repr(UNITS.get(name)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for f in [name + ".cu", *headers]:
@@ -85,20 +95,20 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str, so: str):
+def _start(name: str, so: str, defines: Sequence[str] = ()):
     """Start ``nvcc`` on ``csrc/<name>.cu``, one process per translation
-    unit; returns what :func:`_finish` needs."""
+    unit (each with ``defines``); returns what :func:`_finish` needs."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     units = UNITS.get(name)
     if units is None:
-        cmds, objs = [[nvcc, *NVCC_FLAGS, "-o", tmp, src]], None
+        cmds, objs = [[nvcc, *NVCC_FLAGS, *defines, "-o", tmp, src]], None
     else:
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         objs = [f"{tmp}.{i}.o" for i in range(len(units))]
-        cmds = [[nvcc, *compile_flags, *defs, "-c", "-o", obj, src]
+        cmds = [[nvcc, *compile_flags, *defines, *defs, "-c", "-o", obj, src]
                 for defs, obj in zip(units, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -130,6 +140,7 @@ def _finish(job) -> float:
     with open(so + ".log", "w") as f:
         f.write("".join(log))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    obs_compile.note_kernel_build("miss")
     return seconds
 
 
@@ -141,8 +152,31 @@ def build_all(names) -> Dict[str, float]:
     with _lock:
         jobs = {name: _start(name, library_path(name)) for name in names
                 if not os.path.exists(library_path(name))}
-        return {name: _finish(jobs[name]) if name in jobs else 0.0
-                for name in names}
+        seconds = {}
+        for name in names:
+            seconds[name] = 0.0
+            if name in jobs:
+                seconds[name] = _finish(jobs[name])
+                t0 = jobs[name][-1]
+                obs_compile.record_build(
+                    f"build:{name}", os.path.basename(library_path(name)),
+                    t0, t0 + seconds[name], miss=True)
+        return seconds
+
+
+def build_variant(name: str, defines: Sequence[str]) -> str:
+    """Build ``csrc/<name>.cu`` under the extra ``-D`` flags ``defines``
+    into a library of its own (once: an existing one is kept) and return
+    its path; nothing is loaded. Counted as a build (a load when the
+    library was there): a caller inside :func:`.obs.compile.tracked_call`
+    gets its event."""
+    so = library_path(name, defines)
+    with _lock:
+        if os.path.exists(so):
+            obs_compile.note_kernel_build("hit")
+        else:
+            _finish(_start(name, so, defines))
+    return so
 
 
 def load(name: str) -> Built:
@@ -151,12 +185,20 @@ def load(name: str) -> Built:
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        so = library_path(name)
-        seconds = 0.0 if os.path.exists(so) else _finish(_start(name, so))
-        log = ""
-        if os.path.exists(so + ".log"):
-            with open(so + ".log") as f:
-                log = f.read()
-        built = Built(ctypes.CDLL(so), so, log, seconds)
+        built = obs_compile.tracked_call(_load_new, f"build:{name}", (name,), {})
         _loaded[name] = built
         return built
+
+
+def _load_new(name: str) -> Built:
+    so = library_path(name)
+    if os.path.exists(so):
+        seconds = 0.0
+        obs_compile.note_kernel_build("hit")
+    else:
+        seconds = _finish(_start(name, so))
+    log = ""
+    if os.path.exists(so + ".log"):
+        with open(so + ".log") as f:
+            log = f.read()
+    return Built(ctypes.CDLL(so), so, log, seconds)

@@ -6,9 +6,14 @@ scheduler → renderer/metrics → optional PPM, RLE and checkpoint outputs,
 on the GPU unless ``--device cpu``. ``--resume PATH`` continues a
 checkpoint (either package's), ``--list`` prints what ``--seed`` and
 ``--rule`` accept, and a 1D W-rule takes the spacetime route.
+``--supervise`` runs the steps under the restart supervisor
+(:mod:`.resilience`); ``--telemetry-out`` writes a RunReport
+(:mod:`.obs.report`), which ``python -m gameoflifewithactors_torch report
+PATH [--json] [--diff OTHER]`` reads back (a report of either package).
 ``python -m gameoflifewithactors_torch serve ...`` starts the session
 service (:mod:`.serve.frontend`). Counterpart of
-``gameoflifewithactors_tpu.cli`` for the ported flags and subcommands.
+``gameoflifewithactors_tpu.cli`` for the ported flags and subcommands
+(``warmup`` waits for ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -39,9 +44,15 @@ def _run_elementary(cfg, args, rule) -> int:
     # the requested side effect (a later --resume on the missing file
     # would fail far from the cause)
     for flag, value in (("--checkpoint", cfg.checkpoint),
+                        ("--supervise", cfg.supervise or None),
                         ("--metrics", cfg.metrics), ("--mesh", cfg.mesh),
                         ("--ppm-every", cfg.ppm_every or None),
-                        ("--save-rle", cfg.save_rle)):
+                        ("--save-rle", cfg.save_rle),
+                        ("--telemetry-out", cfg.telemetry_out),
+                        ("--serve-metrics", cfg.serve_metrics),
+                        ("--flight-dump", cfg.flight_dump),
+                        ("--device-poll", cfg.device_poll),
+                        ("--profile-sample", cfg.profile_sample)):
         if value is not None:
             raise SystemExit(
                 f"{flag} is not supported for 1D W-rules (the spacetime "
@@ -114,8 +125,79 @@ def _list_registries() -> int:
     return 0
 
 
+def _report_cmd(argv: Sequence[str]) -> int:
+    """``python -m gameoflifewithactors_torch report run.json``: the human
+    face of a RunReport written by ``--telemetry-out`` (either package's)
+    -- phases, kernel builds, rates, stalls, the roofline, the device duty
+    cycle. Pure file reading: builds no engine and never touches the
+    device. ``--diff`` says first when a side's record is stale
+    (:func:`.obs.diff.record_staleness` with :mod:`.utils.provenance`)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="gameoflifewithactors_torch report",
+        description="summarize a RunReport JSON (--telemetry-out artifact)")
+    ap.add_argument("path", help="RunReport JSON file (the baseline in "
+                                 "--diff mode)")
+    ap.add_argument("--json", action="store_true",
+                    help="re-emit the raw JSON (validated) instead")
+    ap.add_argument("--diff", default=None, metavar="OTHER.json",
+                    help="instead of a summary, print the per-phase / "
+                         "per-metric delta table PATH -> OTHER (thin "
+                         "wrapper over obs.diff; OTHER is the newer run)")
+    args = ap.parse_args(argv)
+    from .obs.report import RunReport
+
+    if args.diff:
+        # raw-JSON loads: either side may be a bench record, not a
+        # RunReport -- the differ speaks both shapes
+        import json as json_lib
+
+        from .obs import diff as diff_lib
+        from .utils import provenance
+
+        with open(args.path) as f:
+            base = json_lib.load(f)
+        with open(args.diff) as f:
+            other = json_lib.load(f)
+        rows = diff_lib.diff_records(base, other)
+        if args.json:
+            print(json_lib.dumps([r.to_dict() for r in rows], indent=1))
+        else:
+            for which, rec in (("baseline", base), ("current", other)):
+                why = diff_lib.record_staleness(rec, provenance=provenance)
+                if why:
+                    print(f"{which} record is stale: {why}")
+            print(f"delta {args.path} -> {args.diff} "
+                  "(ratio = other / baseline):")
+            print("\n".join(diff_lib.format_rows(rows)))
+        return 0
+    rep = RunReport.load(args.path)
+    if args.json:
+        print(rep.to_json())
+    else:
+        print("\n".join(rep.summary_lines()))
+    return 0
+
+
+def _check_supervise(cfg, needs_pacing: bool) -> None:
+    """The JAX CLI's refusals of ``--supervise``: it restores from the
+    checkpoint it keeps, and it owns the tick loop."""
+    if not cfg.checkpoint:
+        raise SystemExit(
+            "--supervise needs --checkpoint PATH: the restart policy "
+            "restores from the checkpoint it maintains there")
+    if needs_pacing:
+        raise SystemExit(
+            "--supervise owns the tick loop; it is incompatible with "
+            "--render live, --rate, and --metrics pacing (run the "
+            "supervised process under --serve-metrics instead)")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(argv) if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "report":
+        return _report_cmd(argv[1:])
     if argv and argv[0] == "serve":
         # multi-tenant session service: live grid sessions on batched
         # lanes behind an HTTP/JSON API
@@ -137,7 +219,70 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise SystemExit("--ppm-every needs --ppm PATH as the "
                          "filename stem for the frame sequence")
 
+    # Pacing (rate limit / periodic metrics / live frames) needs the tick
+    # loop; otherwise the whole run is one call into the engine.
+    needs_pacing = bool(args.render == "live" or cfg.rate_hz or cfg.metrics)
+    if cfg.supervise:
+        _check_supervise(cfg, needs_pacing)
+
     coordinator, scheduler = cfg.build()
+
+    # continuous telemetry: live Prometheus exposition + device sampler,
+    # started BEFORE the run loop (the point is scraping while stepping);
+    # daemon threads, explicitly stopped at the end
+    import os
+
+    exporter = sampler = None
+    serve_port = cfg.serve_metrics
+    if serve_port is None and os.environ.get("GOLTPU_METRICS_PORT"):
+        serve_port = int(os.environ["GOLTPU_METRICS_PORT"])
+    if serve_port is not None:
+        from .obs.device import DEFAULT_INTERVAL_S, DeviceSampler
+        from .obs.exporter import serve_metrics
+
+        exporter = serve_metrics(serve_port)
+        poll = cfg.device_poll or float(
+            os.environ.get("GOLTPU_DEVICE_POLL_S", DEFAULT_INTERVAL_S))
+        sampler = DeviceSampler(poll).start()
+        print(f"serving metrics: http://0.0.0.0:{exporter.port}/metrics",
+              file=sys.stderr)
+
+    # flight recorder: armed for any telemetry run (default path rides
+    # next to the RunReport), or standalone via --flight-dump
+    flight_path = cfg.flight_dump or (
+        cfg.telemetry_out + ".flight.jsonl" if cfg.telemetry_out else None)
+    # sampling profiler (obs/profiler.py): off by default, armed by
+    # --profile-sample or $GOLTPU_PROFILE_SAMPLE_S
+    profile_sample = cfg.profile_sample
+    if profile_sample is None and os.environ.get("GOLTPU_PROFILE_SAMPLE_S"):
+        profile_sample = float(os.environ["GOLTPU_PROFILE_SAMPLE_S"])
+    standalone_profiler = None
+    telem = None
+    if cfg.telemetry_out:
+        from .obs import begin_run_telemetry
+
+        # the session starts AFTER build: the watchdog watches run time
+        # only, not seed parsing
+        telem = begin_run_telemetry(
+            stall_deadline=cfg.stall_deadline or 60.0,
+            flight_path=flight_path,
+            profile_sample=profile_sample)
+        telem.attach(coordinator)
+    elif profile_sample:
+        # no report to fold into, but the profile_* gauges still feed
+        # --serve-metrics scrapes
+        from .obs import profiler as profiler_lib
+
+        standalone_profiler = profiler_lib.arm(
+            profiler_lib.ProfileSampler(profile_sample))
+        standalone_profiler.wait_open()
+    if telem is None and flight_path:
+        from .obs import flight as flight_lib
+
+        fr = flight_lib.arm(flight_lib.FlightRecorder(flight_path))
+        if coordinator.metrics is not None:
+            # tape before user-facing sinks (see RunTelemetry.attach)
+            coordinator.metrics.sinks.insert(0, fr.on_step)
 
     if args.render == "live":
         coordinator.subscribe(ConsoleRenderer())
@@ -153,9 +298,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             lambda frame: seq.write(coordinator.engine.snapshot(),
                                     frame.generation))
         seq.write(coordinator.engine.snapshot(), coordinator.generation)
-    # Pacing (rate limit / periodic metrics / live frames) needs the tick
-    # loop; otherwise the whole run is one call into the engine.
-    if args.render == "live" or cfg.rate_hz or cfg.metrics:
+    if cfg.supervise:
+        from .resilience import RestartPolicy, Supervisor
+
+        supervisor = Supervisor(
+            coordinator, checkpoint_path=cfg.checkpoint,
+            checkpoint_every=cfg.checkpoint_every,
+            policy=RestartPolicy(max_restarts=cfg.max_restarts))
+        stats = supervisor.run(cfg.steps)
+        if stats["restarts"]:
+            print(f"supervisor: recovered from {stats['restarts']} "
+                  f"failure(s) {stats['restarts_by_cause']}",
+                  file=sys.stderr)
+    elif needs_pacing:
         scheduler.run(max_generations=cfg.steps)
     elif seq is not None:
         # surface a frame to the sequence every N generations
@@ -198,6 +353,43 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         path = ckpt_lib.save(coordinator.engine, cfg.checkpoint)
         print(f"checkpoint written: {path}", file=sys.stderr)
+
+    if telem is not None:
+        report = telem.finish(
+            engine=coordinator.engine,
+            config={"steps": cfg.steps, "argv": list(argv)})
+        report.save(cfg.telemetry_out)
+        print(f"telemetry report written: {cfg.telemetry_out}",
+              file=sys.stderr)
+        if report.profile is not None:
+            # the standalone attribution artifact: the report's profile
+            # section, greppable without the report
+            import json as _json
+
+            from .obs.profiler import attribution_path_for
+
+            apath = attribution_path_for(cfg.telemetry_out)
+            with open(apath, "w") as f:
+                _json.dump(report.profile, f, indent=1)
+                f.write("\n")
+            print(f"profile attribution written: {apath}", file=sys.stderr)
+    else:
+        if standalone_profiler is not None:
+            from .obs import profiler as profiler_lib
+
+            if standalone_profiler is profiler_lib.active_sampler():
+                profiler_lib.disarm()
+            else:
+                standalone_profiler.stop()
+        if flight_path:
+            from .obs import flight as flight_lib
+
+            flight_lib.disarm()  # clean exit: no crash report to leave
+
+    if sampler is not None:
+        sampler.stop()
+    if exporter is not None:
+        exporter.stop()
 
     coordinator.engine.block_until_ready()
     return 0

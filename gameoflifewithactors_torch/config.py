@@ -4,8 +4,11 @@ Counterpart of ``gameoflifewithactors_tpu.config`` for the flags of the
 ported paths: grid, rule (life-like, Generations or Larger than Life),
 topology, seed, backend (with the sparse backend's tile and capacity),
 steps, rendering, rate, metrics, population, the device, the mesh, the
-generations per halo exchange, checkpoint and resume, the PPM and RLE
-outputs, and ``--list``.
+generations per halo exchange, checkpoint and resume, supervision
+(``--supervise``, ``--checkpoint-every``, ``--max-restarts``), the
+telemetry flags (``--telemetry-out``, ``--stall-deadline``,
+``--flight-dump``, ``--serve-metrics``, ``--device-poll``,
+``--profile-sample``), the PPM and RLE outputs, and ``--list``.
 ``SimulationConfig.build()`` assembles the mesh, the coordinator (from a
 checkpoint with ``resume``) and the scheduler, so the CLI and library
 users share one construction path.
@@ -47,9 +50,19 @@ class SimulationConfig:
     track_population: bool = False
     checkpoint: Optional[str] = None        # save path (written at end)
     resume: Optional[str] = None            # checkpoint to resume from
+    supervise: bool = False                 # restart-with-rollback loop (resilience/)
+    checkpoint_every: int = 100             # supervised: auto-checkpoint cadence
+    max_restarts: int = 5                   # supervised: circuit-breaker threshold
     ppm: Optional[str] = None               # final-frame / spacetime PPM path
     ppm_every: int = 0                      # full-res frame sequence cadence
     save_rle: Optional[str] = None          # final state as RLE
+    telemetry_out: Optional[str] = None     # RunReport JSON path (obs/)
+    stall_deadline: Optional[float] = None  # watchdog deadline seconds
+    serve_metrics: Optional[int] = None     # Prometheus /metrics port (obs/)
+    flight_dump: Optional[str] = None       # flight-recorder dump path;
+    #                                         default <telemetry_out>.flight.jsonl
+    device_poll: Optional[float] = None     # device-sampler interval seconds
+    profile_sample: Optional[float] = None  # sampling-profiler period seconds
 
     # -- assembly ------------------------------------------------------------
 
@@ -224,6 +237,19 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--population", action="store_true", help="track live-cell count")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="write final state here")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under a restart supervisor (resilience/): "
+                        "auto-checkpoint to --checkpoint every "
+                        "--checkpoint-every generations and, on a "
+                        "coordinator exception or watchdog stall, restore "
+                        "the last checkpoint and replay with capped "
+                        "exponential backoff. Requires --checkpoint PATH")
+    p.add_argument("--checkpoint-every", type=int, default=100, metavar="N",
+                   help="with --supervise: checkpoint cadence in "
+                        "generations (default 100)")
+    p.add_argument("--max-restarts", type=int, default=5, metavar="N",
+                   help="with --supervise: consecutive failed chunks "
+                        "before the circuit breaker gives up (default 5)")
     p.add_argument("--ppm", default=None, metavar="PATH",
                    help="write the final grid (2D rules) or the full "
                         "spacetime diagram (1D W-rules) as a PPM image")
@@ -239,6 +265,39 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write the final state as standard RLE (Golly-"
                         "compatible; multi-state rules in Golly's extended "
                         "form -- round-trips with --seed @file.rle)")
+    p.add_argument("--telemetry-out", default=None, metavar="PATH",
+                   help="write a RunReport JSON here at end of run: host "
+                        "spans (dispatch/sync/readback), kernel builds, "
+                        "StepMetrics, halo-byte figures, stalls, the "
+                        "roofline (inspect with the 'report' subcommand)")
+    p.add_argument("--serve-metrics", type=int, default=None, metavar="PORT",
+                   help="serve Prometheus text-format metrics (registry "
+                        "counters + live device-memory gauges) at "
+                        "http://0.0.0.0:PORT/metrics while the run steps; "
+                        "0 picks an ephemeral port (printed to stderr). "
+                        "Also honored via $GOLTPU_METRICS_PORT")
+    p.add_argument("--flight-dump", default=None, metavar="PATH",
+                   help="flight-recorder crash-report path (JSONL): the "
+                        "last N StepMetrics/spans/kernel builds + a "
+                        "registry snapshot, written on watchdog stall, "
+                        "coordinator exception, or SIGTERM/SIGINT. "
+                        "Default with --telemetry-out: "
+                        "<telemetry-out>.flight.jsonl")
+    p.add_argument("--device-poll", type=float, default=None, metavar="S",
+                   help="device memory sampler interval in seconds "
+                        "(default 1.0, or $GOLTPU_DEVICE_POLL_S); feeds "
+                        "the hbm_bytes_* gauges --serve-metrics exposes")
+    p.add_argument("--profile-sample", type=float, default=None, metavar="S",
+                   help="arm the always-on sampling profiler: one 200 ms "
+                        "torch.profiler window every S seconds, op-class "
+                        "attribution into the RunReport profile section + "
+                        "profile_* gauges (off by default; also honored "
+                        "via $GOLTPU_PROFILE_SAMPLE_S; the window is "
+                        "capped at 10%% of S)")
+    p.add_argument("--stall-deadline", type=float, default=None, metavar="S",
+                   help="with --telemetry-out: flag any tick exceeding S "
+                        "seconds, naming the last-completed span "
+                        "(default 60)")
     p.add_argument("--resume", default=None, metavar="PATH",
                    help="resume from a checkpoint (the checkpoint's grid/rule/"
                         "seed/topology win; --grid/--rule/--seed/--topology "
@@ -276,8 +335,17 @@ def from_args(argv=None) -> "tuple[SimulationConfig, argparse.Namespace]":
         track_population=args.population,
         checkpoint=args.checkpoint,
         resume=args.resume,
+        supervise=args.supervise,
+        checkpoint_every=args.checkpoint_every,
+        max_restarts=args.max_restarts,
         ppm=args.ppm,
         ppm_every=args.ppm_every,
         save_rle=args.save_rle,
+        telemetry_out=args.telemetry_out,
+        stall_deadline=args.stall_deadline,
+        serve_metrics=args.serve_metrics,
+        flight_dump=args.flight_dump,
+        device_poll=args.device_poll,
+        profile_sample=args.profile_sample,
     )
     return cfg, args

@@ -31,6 +31,10 @@ from .models import seeds as seeds_lib
 from .models.generations import GenRule
 from .models.ltl import LtLRule
 from .models.rules import Rule
+from .obs import compile as obs_compile
+from .obs import flight as obs_flight
+from .obs import spans as obs_spans
+from .obs import watchdog as obs_watchdog
 from .ops.stencil import Topology
 from .utils.metrics import MetricsLogger, StepMetrics
 
@@ -145,28 +149,59 @@ class GridCoordinator:
 
     def tick(self, n: int = 1) -> None:
         """Advance n generations and notify subscribers once. With a
-        metrics logger, the tick waits for the device and logs its rate."""
+        metrics logger, the tick waits for the device and logs its rate.
+
+        When a stall watchdog is armed (obs.watchdog.arm), the whole tick
+        runs under its watch, so a wedged dispatch, sync or subscriber is
+        flagged -- with the last-completed span named -- while still stuck
+        (on the card the wait shows where the tick syncs: with a metrics
+        logger). When a flight recorder is armed (obs.flight.arm), an
+        exception escaping the tick leaves a crash dump before
+        propagating."""
+        wd = obs_watchdog.active_watchdog()
+        try:
+            if wd is not None:
+                with wd.watch(f"tick@gen{self.generation}+{n}"):
+                    self._tick(n)
+            else:
+                self._tick(n)
+        except BaseException as exc:
+            fr = obs_flight.active_flight_recorder()
+            if fr is not None:
+                fr.dump("exception in coordinator loop: "
+                        f"{type(exc).__name__}: {exc}")
+            raise
+
+    def _tick(self, n: int) -> None:
         t0 = time.perf_counter()
-        self.engine.step(n)
-        if self.metrics is not None:
-            self.engine.block_until_ready()
-            dt = max(time.perf_counter() - t0, 1e-9)
-            cells = self.shape[0] * self.shape[1] * n
-            self.metrics.log(
-                StepMetrics(
-                    generation=self.generation,
-                    generations_stepped=n,
-                    wall_seconds=dt,
-                    cell_updates_per_sec=cells / dt,
-                    population=self.population() if self.track_population else None,
-                    # the arithmetic model: the measured source steps a
-                    # copy of the state once, which a live loop should not
-                    halo_bytes=self.engine.halo_bytes_per_gen(
-                        source="model") * n or None,
-                    active_tiles=self.engine.active_tiles(),
+        with obs_spans.span("coordinator.tick", generations=n):
+            self.engine.step(n)
+            if self.metrics is not None:
+                self.engine.block_until_ready()
+                t1 = time.perf_counter()
+                # kernel builds that completed inside this tick (the first
+                # launch of a source runs nvcc): reported apart, so
+                # wall_seconds -- and the rate from it -- describe stepping
+                compile_s = obs_compile.COMPILE_LOG.compile_seconds_between(
+                    t0, t1)
+                dt = max(t1 - t0 - compile_s, 1e-9)
+                cells = self.shape[0] * self.shape[1] * n
+                self.metrics.log(
+                    StepMetrics(
+                        generation=self.generation,
+                        generations_stepped=n,
+                        wall_seconds=dt,
+                        cell_updates_per_sec=cells / dt,
+                        population=self.population() if self.track_population else None,
+                        # the arithmetic model: the measured source steps a
+                        # copy of the state once, which a live loop should not
+                        halo_bytes=self.engine.halo_bytes_per_gen(
+                            source="model") * n or None,
+                        active_tiles=self.engine.active_tiles(),
+                        compile_seconds=compile_s or None,
+                    )
                 )
-            )
-        self._notify()
+            self._notify()
 
     def run(self, generations: int, *, render_every: int = 0) -> None:
         """Run ``generations`` generations; if render_every > 0, surface a
@@ -181,7 +216,9 @@ class GridCoordinator:
             self.tick(generations)
 
     def notify_now(self) -> None:
-        """Surface the current state to subscribers outside a tick."""
+        """Surface the current state to subscribers outside a tick (the
+        supervisor calls this after a checkpoint restore, so renderers see
+        the rolled-back generation instead of a silent jump)."""
         self._notify()
 
     def snapshot(self) -> np.ndarray:
@@ -204,6 +241,10 @@ class GridCoordinator:
     def _notify(self) -> None:
         if not self._subscribers:
             return
-        frame = self.current_frame()
-        for fn in list(self._subscribers):
-            fn(frame)
+        # subscriber time (renderers, PPM writers) is host time the tick
+        # pays; its own span keeps it separable from dispatch and sync
+        with obs_spans.span("coordinator.notify",
+                            subscribers=len(self._subscribers)):
+            frame = self.current_frame()
+            for fn in list(self._subscribers):
+                fn(frame)

@@ -32,6 +32,9 @@ from .models.elementary import ElementaryRule
 from .models.generations import GenRule, parse_any
 from .models.ltl import LtLRule
 from .models.rules import Rule
+from .obs import profiler as obs_profiler
+from .obs import spans as obs_spans
+from .obs.cost import packed_cost
 from .ops import bitpack, cuda_stencil
 from .ops.generations import multi_step_generations
 from .ops.ltl import multi_step_ltl
@@ -622,15 +625,26 @@ class Engine:
     # -- stepping ------------------------------------------------------------
 
     def step(self, n: int = 1) -> None:
-        """Advance ``n`` generations (enqueued on the device; no sync)."""
+        """Advance ``n`` generations (enqueued on the device; no sync).
+
+        The ``engine.step`` span is dispatch time only (the kernels run on
+        after it closes); the wait shows under ``engine.sync`` and the
+        readback under ``engine.snapshot``, the separation the telemetry
+        report keys on. While a sampling profiler is armed, the dispatch
+        is a ``goltpu.dispatch[<backend>]`` range on the profiler's
+        timeline."""
         if n < 0:
             raise ValueError(f"cannot step a negative number of generations: {n}")
         if n == 0:
             return
-        if self._sparse is not None:
-            self._sparse.step(n)
-        else:
-            self._state = self._run(self._state, n)
+        with obs_spans.span("engine.step", generations=n,
+                            backend=self.backend), \
+                obs_profiler.dispatch_annotation(
+                    f"goltpu.dispatch[{self.backend}]"):
+            if self._sparse is not None:
+                self._sparse.step(n)
+            else:
+                self._state = self._run(self._state, n)
         self.generation += n
 
     def block_until_ready(self) -> None:
@@ -638,9 +652,10 @@ class Engine:
         every step enqueued."""
         devices = [self.device] if self.mesh is None else \
             [d for d, _ in self.mesh.groups]
-        for device in devices:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+        with obs_spans.span("engine.sync"):
+            for device in devices:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
 
     # -- observation ---------------------------------------------------------
 
@@ -669,17 +684,18 @@ class Engine:
         downsampled *on device* to fit within ``max_shape`` before the
         transfer, so rendering a 16384² universe to a console ships a few
         KB."""
-        state = self.state
-        if self._layout == "planes":
-            dense = unpack_generations(state)
-        elif self._layout == "words":
-            dense = bitpack.unpack(state)
-        else:
-            dense = state
-        if max_shape is not None:
-            dense = _downsample_max(dense, max_shape)
-        # a copy: for a CPU tensor .numpy() would be a view of live state
-        return np.array(dense.cpu().numpy(), dtype=np.uint8, copy=True)
+        with obs_spans.span("engine.snapshot"):
+            state = self.state
+            if self._layout == "planes":
+                dense = unpack_generations(state)
+            elif self._layout == "words":
+                dense = bitpack.unpack(state)
+            else:
+                dense = state
+            if max_shape is not None:
+                dense = _downsample_max(dense, max_shape)
+            # a copy: for a CPU tensor .numpy() would be a view of live state
+            return np.array(dense.cpu().numpy(), dtype=np.uint8, copy=True)
 
     def population(self) -> int:
         """Exact live-cell count (device-side count, host-side total). For
@@ -706,6 +722,26 @@ class Engine:
         if self._sparse is None:
             return None
         return self._sparse.active_tiles()
+
+    def runner_cost_analysis(self, gens: int = 8) -> Optional[dict]:
+        """The work one ``gens``-generation dispatch of this engine's rule
+        on its grid does, counted in the packed formulation
+        (:func:`.obs.cost.packed_cost`): ``generations``, ``flops``
+        (bitwise operations on 32-bit words, not floating point;
+        ``ops_kind="bitwise"``) and ``bytes_accessed`` (the packed state
+        read and written once per dispatch). The JAX engine asks XLA's cost
+        analysis of its compiled runner; this package has no compiler to
+        ask, so it counts from the rule and the shape: the same figures for
+        every backend that steps the same rule on the same grid (``cuda``,
+        ``packed``, ``dense``, with or without a mesh), so a faster
+        backend raises the achieved share instead of moving the
+        denominator. Feeds the RunReport's roofline (:mod:`.obs.device`).
+        None for the activity-tiled backends (their work depends on the
+        activity: a static figure would lie) and for multi-state Larger
+        than Life (no count of its plane-stack formulation)."""
+        if self.backend in _TILED_BACKENDS:
+            return None
+        return packed_cost(self.rule, self.shape, gens)
 
     def halo_bytes_per_gen(self, source: str = "auto") -> int:
         """Bytes one generation moves between mesh positions in halo

@@ -1,10 +1,18 @@
-"""Compile events and their log: the tape the flight recorder reads.
+"""Compile events and their log: what the tick subtracts and the flight
+recorder tapes.
 
-The event types of ``gameoflifewithactors_tpu.obs.compile``, copied so
-that :mod:`.flight` (which taps :data:`COMPILE_LOG`) works as it does
-there and dumps the same record shape. This package has no jit; nothing
-in it records compile events yet (the kernel builds of ``_build`` are
-the candidate, ROADMAP A15/A16), so the log stays empty.
+The event types of ``gameoflifewithactors_tpu.obs.compile``. This package
+has no jit: what compiles is a kernel library. ``_build`` records one
+:class:`CompileEvent` per library it builds or loads: ``kind="cache_miss"``
+when ``nvcc`` ran (seconds to minutes on the first call of a tick), and
+``"cache_hit"`` when an existing ``.so`` was loaded (no compile). Only
+misses count as compile seconds, so
+``COMPILE_LOG.compile_seconds_between`` tells ``GridCoordinator.tick`` how
+much of its wall time was a build, as in the JAX package.
+
+:func:`tracked_call` runs a call and records one event when kernel builds
+or loads landed inside it (:func:`note_kernel_build` counts them, as the
+JAX module's persistent-cache listener counts cache events).
 """
 
 from __future__ import annotations
@@ -12,27 +20,42 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
-from typing import Deque, List
+import time
+from typing import Callable, Deque, List
+
+from .registry import REGISTRY
 
 MAX_EVENTS = 4096  # a runaway retrace loop must not grow memory unbounded
 
 
+def _describe(x) -> str:
+    """'int32[512,16]'-style for tensor-likes, short repr otherwise."""
+    dtype = getattr(x, "dtype", None)
+    shape = getattr(x, "shape", None)
+    if dtype is not None and shape is not None:
+        return f"{str(dtype).replace('torch.', '')}[{','.join(map(str, shape))}]"
+    r = repr(x)
+    return r if len(r) <= 32 else r[:29] + "..."
+
+
+def signature_of(args, kwargs) -> str:
+    parts = [_describe(a) for a in args]
+    parts += [f"{k}={_describe(v)}" for k, v in sorted(kwargs.items())]
+    return ", ".join(parts)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompileEvent:
-    runner: str            # the wrapped function's name
-    signature: str         # shape/dtype signature that triggered the trace
-    wall_seconds: float    # the compiling call's wall time (compile-dominated)
-    cache_miss: bool       # True: this call paid a REAL XLA compile
-    donated: bool          # which of the two jit instances compiled
+    runner: str            # what was built: "build:<source>" or a call's name
+    signature: str         # the library file, or the call's shape signature
+    wall_seconds: float    # the building call's wall time (build-dominated)
+    cache_miss: bool       # True: this call ran nvcc
+    donated: bool          # kept for the JAX record shape; always False here
     t0: float              # perf_counter at call start
     t1: float              # perf_counter at completion
-    # warm-start attribution (aot/): "cache_miss" = a real XLA compile
-    # ran; "cache_hit" = the jit cache grew but the executable was served
-    # from the persistent disk cache (trace + disk read, no compile);
-    # "aot_loaded" = a serialized jax.export runner was loaded in place
-    # of jitting (aot/registry.py). Only "cache_miss" events count toward
-    # compile-second totals — the whole point of the warm path is that
-    # the other two cost ~nothing.
+    # "cache_miss" = nvcc built the library; "cache_hit" = an existing
+    # .so was loaded (no compile). Only "cache_miss" events count toward
+    # compile-second totals.
     kind: str = "cache_miss"
 
     def to_dict(self) -> dict:
@@ -90,3 +113,58 @@ class CompileEventLog:
 
 
 COMPILE_LOG = CompileEventLog()
+
+# kernel libraries built (nvcc ran: "miss") and loaded from disk ("hit")
+# in this process; tracked_call snapshots them around each call
+_BUILD_LOCK = threading.Lock()
+_BUILD_COUNTS = {"hit": 0, "miss": 0}
+
+
+def note_kernel_build(kind: str) -> None:
+    """Count one kernel library built (``"miss"``) or loaded from an
+    existing file (``"hit"``)."""
+    with _BUILD_LOCK:
+        _BUILD_COUNTS[kind] += 1
+    REGISTRY.counter("kernel_builds",
+                     "kernel libraries built (miss) or loaded (hit)"
+                     ).inc(kind=kind)
+
+
+def build_counts() -> tuple:
+    with _BUILD_LOCK:
+        return _BUILD_COUNTS["hit"], _BUILD_COUNTS["miss"]
+
+
+def record_build(runner: str, signature: str, t0: float, t1: float, *,
+                 miss: bool, log: CompileEventLog = None) -> CompileEvent:
+    """Record one build (``miss``) or load of a kernel library that ran
+    over the ``perf_counter`` window [t0, t1]."""
+    ev = CompileEvent(runner=runner, signature=signature,
+                      wall_seconds=t1 - t0, cache_miss=miss, donated=False,
+                      t0=t0, t1=t1, kind="cache_miss" if miss else "cache_hit")
+    (log if log is not None else COMPILE_LOG).record(ev)
+    if miss:
+        REGISTRY.histogram("kernel_build_seconds",
+                           "wall seconds of kernel library builds"
+                           ).observe(t1 - t0, runner=runner)
+    return ev
+
+
+def tracked_call(target: Callable, runner: str, args: tuple, kwargs: dict,
+                 *, donated: bool = False, log: CompileEventLog = None):
+    """Execute ``target(*args, **kwargs)``, recording a CompileEvent when
+    kernel libraries were built or loaded inside the call: ``cache_miss``
+    when any was built by nvcc, else ``cache_hit``. A call that built and
+    loaded nothing costs two ``perf_counter`` and two counter reads."""
+    hit0, miss0 = build_counts()
+    t0 = time.perf_counter()
+    out = target(*args, **kwargs)
+    t1 = time.perf_counter()
+    hit1, miss1 = build_counts()
+    if hit1 > hit0 or miss1 > miss0:
+        ev = CompileEvent(
+            runner=runner, signature=signature_of(args, kwargs),
+            wall_seconds=t1 - t0, cache_miss=miss1 > miss0, donated=donated,
+            t0=t0, t1=t1, kind="cache_miss" if miss1 > miss0 else "cache_hit")
+        (log if log is not None else COMPILE_LOG).record(ev)
+    return out

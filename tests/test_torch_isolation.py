@@ -53,7 +53,10 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "serve.lanes", "serve.service", "serve.frontend",
              "models.elementary", "ops.elementary", "parallel.multihost",
              "utils.checkpoint", "ops.sparse", "memory", "memory.pool",
-             "memory.paged"):
+             "memory.paged", "obs.watchdog", "obs.report", "obs.profiler",
+             "obs.cost", "obs.diff", "obs.aggregate", "utils.profiling",
+             "utils.provenance", "utils.fault", "analysis.sanitizers",
+             "resilience.faultplan"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -67,7 +70,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(" ", 1)
-    assert int(count) >= 45   # every module: rule families, obs, serve, mesh, ...
+    assert int(count) >= 57   # every module: rule families, obs, serve, mesh, ...
     assert loaded.strip() == "[]"
 
 
@@ -84,6 +87,7 @@ import numpy as np
 from gameoflifewithactors_torch import Engine
 from gameoflifewithactors_torch.memory import PagedUniverse
 from gameoflifewithactors_torch.utils import checkpoint
+from gameoflifewithactors_torch.cli import main
 
 u = PagedUniverse("B3/S23", capacity=32, tile_rows=16, tile_words=1,
                   device="cpu")
@@ -95,17 +99,25 @@ e = Engine(np.pad(glider, ((28, 28), (60, 60))), "B3/S23", backend="sparse",
            device="cpu")
 e.step(64)
 print(u.population(), e.population(), e.active_tiles())
+# the observed and supervised run, and the report subcommand
+main(["--device", "cpu", "--grid", "48x96", "--steps", "40", "--supervise",
+      "--checkpoint-every", "20", "--checkpoint", sys.argv[1] + "/c.npz",
+      "--telemetry-out", sys.argv[1] + "/r.json", "--profile-sample", "5"])
+main(["report", sys.argv[1] + "/r.json", "--diff", sys.argv[1] + "/r.json"])
 """
 
 
-def test_the_tiled_backends_run_with_jax_blocked():
+def test_the_tiled_backends_run_with_jax_blocked(tmp_path):
     """The memory/ package, the paged universe, the sparse engine and the
     checkpoint module import and step with every import of ``jax`` and the
-    JAX package refused."""
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=_REPO,
-                         capture_output=True, text=True, timeout=120)
+    JAX package refused; so do a supervised, observed CLI run and the
+    ``report`` subcommand."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
+                         cwd=_REPO, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["5", "5", "1"]
+    assert out.stdout.split()[:3] == ["5", "5", "1"]
+    assert "delta" in out.stdout and (tmp_path / "r.json").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
