@@ -79,7 +79,17 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    ``FaultPlan`` corrupt_region after generation 1000 (one restart, equal
    to the unsupervised run, the seconds of saves, restores and stepping);
    an induced stall at 4096² (one StallEvent, one restart, a flight
-   dump).
+   dump). Warm start, on cache roots of its own: ``warmup --manifest`` on
+   an empty root (B1, B3, B4 and B2's lane form each a ``cache_miss``
+   with nvcc seconds, the ``packed`` spec's registry record written);
+   the CLI at 16384² B3/S23 from spawn to the end of its first
+   2000-generation tick on empty roots and on the warmed one (no build),
+   in turns; the registry-served ``Engine(backend="packed")`` (CUDA
+   graphs of the plain loop) equal to the eager runner and to B1 after
+   200 generations, launching no kernel, its ms per generation against
+   the eager runner at 16384² and 1024²; ``serve --manifest`` on the
+   warmed root (the ladder warmed, sessions grown through every rung,
+   no build).
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -1906,13 +1916,269 @@ def observe_phase(cs, card: str, main_rates: dict) -> dict:
     return out
 
 
-def start_server(repo: str, build_dir: str) -> subprocess.Popen:
+WARM_MANIFEST = [  # four single-device 16384^2 TORUS specs, a lane ladder
+    {"rule": "B3/S23", "shape": list(MAIN_SHAPE)},
+    {"rule": "brain", "shape": list(MAIN_SHAPE)},
+    {"rule": "bosco", "shape": list(MAIN_SHAPE)},
+    {"rule": "B3/S23", "shape": list(MAIN_SHAPE), "backend": "packed"},
+    {"rule": "B3/S23", "shape": list(LANE_SHAPE), "lanes": [1, 8, 64, 256]},
+]
+WARM_KERNELS = ["B1", "B3", "B4", None, "B2 lane"]   # what each entry builds
+WARM_CLI_GENERATIONS = 2000     # the first (and only) tick of the timed run
+GRAPH_GENERATIONS = 200         # the registry-served engine against B1
+WARM_SESSIONS = 73              # grows the lane through 1, 8, 64 and 256
+
+
+def warmstart_phase(cs, card: str, repo: str) -> dict:
+    """Phase 3 for warm start, on cache roots of its own (never the
+    default one): (1) ``warmup --manifest`` on an empty root D1 in a
+    subprocess (B1, B3, B4 and B2's lane form built, each a
+    ``cache_miss`` with nvcc seconds; the ``packed`` spec's record
+    written, the ``cuda`` specs out of the registry's scope); (2) the CLI
+    at 16384² B3/S23 from spawn to the end of its first 2000-generation
+    tick, on empty roots (nvcc builds B1) and on D1 (no build), in turns;
+    (3) in-process, ``Engine(backend="packed")`` on D1 served by the
+    registry (CUDA graphs of the plain loop): 200 generations equal to
+    the eager plain runner and to B1, no kernel launched, a handed-out
+    state kept, ms per generation against the eager runner at 16384² and
+    1024²; (4) ``serve --manifest`` on D1: the lane ladder warmed before
+    the port opens, sessions grown through every rung and stepped, no
+    build after.
+    Returns the records."""
+    import signal
+    import urllib.request
+    import warnings
+
+    import torch
+
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+    from gameoflifewithactors_torch.aot import registry as aot_registry
+    from gameoflifewithactors_torch.models import seeds
+    from gameoflifewithactors_torch.models.rules import CONWAY
+    from gameoflifewithactors_torch.obs.report import RunReport
+    from gameoflifewithactors_torch.ops import bitpack
+    from gameoflifewithactors_torch.ops.packed import multi_step_packed
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    warm_root = os.path.join(work, "D1")
+    manifest = os.path.join(work, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(WARM_MANIFEST, f)
+    side = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
+    out = {}
+
+    # (1) the cold warmup
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gameoflifewithactors_torch", "warmup",
+         "--manifest", manifest, "--cache-dir", warm_root, "--json"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"warmup exited {proc.returncode}: {proc.stderr}")
+    rows = json.loads(proc.stdout.splitlines()[-1])["specs"]
+    check(len(rows) == len(WARM_MANIFEST), f"warmup rows {rows}")
+    for entry, kernel, row in zip(WARM_MANIFEST, WARM_KERNELS, rows):
+        label = (f"{entry['rule']} {entry['shape'][0]}x{entry['shape'][1]} "
+                 f"{entry.get('backend', 'auto')}")
+        if kernel is None:
+            check(row["resolved_backend"] == "packed"
+                  and row["aot"] == "serialized", f"warmup {label}: {row}")
+        else:
+            check(row["resolved_backend"] == "cuda"
+                  and row["events"].get("cache_miss", 0) >= 1
+                  and row["compile_seconds"] > 0
+                  and row["aot"].startswith("unsupported: "),
+                  f"warmup {label}: {row}")
+        lanes = row.get("lanes")
+        if lanes:
+            check(lanes["status"].startswith("warmed the lane kernel"),
+                  f"warmup {label} lanes: {lanes}")
+        print(f"warmup on an empty root, {label}"
+              + (f" lanes {lanes['capacities']}" if lanes else "")
+              + f": builds {kernel or 'nothing'}, {row['wall_seconds']:.4f} s "
+              f"wall, {row['compile_seconds']:.4f} s nvcc, events "
+              f"{row['events'] or '{}'}, aot {row['aot'].split(':')[0]}  "
+              f"[{card}]")
+    out["warmup"] = {"wall": wall, "rows": rows}
+    print(f"warmup process (spawn to exit, {len(rows)} specs): {wall:.4f} s  "
+          f"[{card}]")
+
+    # (2) time to first step through the CLI, cold and warm in turns
+    def first_step(root: str, label: str):
+        report = os.path.join(work, f"{label}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gameoflifewithactors_torch", "--grid",
+             side, "--seed", "random", "--rng-seed", "1", "--steps",
+             str(WARM_CLI_GENERATIONS), "--render-every",
+             str(WARM_CLI_GENERATIONS), "--metrics", "jsonl", "--cache-dir",
+             root, "--telemetry-out", report],
+            cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        first, lines = None, []
+        for line in proc.stderr:   # the tick's metrics record ends the tick
+            if first is None and line.startswith("{"):
+                first = time.perf_counter() - t0
+            lines.append(line)
+        rc = proc.wait(timeout=300)
+        check(rc == 0 and first is not None,
+              f"CLI on {label} exited {rc}: {''.join(lines)}")
+        rep = RunReport.load(report)
+        kinds = {}
+        for ev in rep.compile_events:
+            kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
+        return first, kinds, rep.compile_seconds_total
+
+    runs = []
+    for label, root in [("cold", os.path.join(work, "D2")), ("warm", warm_root),
+                        ("warm", warm_root), ("cold", os.path.join(work, "D3"))]:
+        first, kinds, nvcc = first_step(root, f"{label}{len(runs)}")
+        if label == "warm":
+            check(kinds.get("cache_miss", 0) == 0 and nvcc == 0,
+                  f"warm CLI run built: {kinds}, {nvcc} s")
+        else:
+            check(kinds.get("cache_miss", 0) >= 1 and nvcc > 0,
+                  f"cold CLI run did not build: {kinds}, {nvcc} s")
+        runs.append((label, first, kinds, nvcc))
+        print(f"time to first step, CLI {side} B3/S23 50% soup TORUS, one "
+              f"{WARM_CLI_GENERATIONS}-generation tick, {label} root: "
+              f"{first:.4f} s from spawn (compile events {kinds}, "
+              f"{nvcc:.4f} s nvcc)  [{card}]")
+    for label in ("cold", "warm"):
+        out[label] = [first for lab, first, _, _ in runs if lab == label]
+
+    # (3) the registry-served engine, in this process, on D1
+    home = aot_cache.resolve_cache_root()
+    aot_cache.ensure_persistent_cache(warm_root)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    start = bitpack.pack(seeds.bernoulli(gen, MAIN_SHAPE, 0.5))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        engine = Engine.from_packed(start, "B3/S23", backend="packed")
+    check(engine.aot_loaded, "the packed 16384^2 engine was not served from "
+                             "the registry warmup wrote")
+    reset_launches(cs)
+    engine.step(GRAPH_GENERATIONS)
+    torch.cuda.synchronize()
+    counts = launches(cs)
+    check(not any(counts.values()),
+          f"the registry-served engine launched {counts}")
+    eager = multi_step_packed(start, GRAPH_GENERATIONS, rule=CONWAY)
+    b1 = cs.multi_step_kernel(start, GRAPH_GENERATIONS, rule=CONWAY)
+    errs = (max_abs_err(engine.state, eager), max_abs_err(engine.state, b1))
+    check(errs == (0, 0), f"registry-served engine differs: max_abs_err "
+                          f"{errs} against the eager runner and B1")
+    held = engine.state
+    copy = held.clone()
+    engine.step(37)
+    torch.cuda.synchronize()
+    check(torch.equal(held, copy), "a later step overwrote a handed-out state")
+    print(f"registry-served Engine(backend='packed') {side} B3/S23 on the "
+          f"warmed root: aot_loaded, {GRAPH_GENERATIONS} generations through "
+          f"CUDA graphs == the eager plain runner and B1 (max_abs_err "
+          f"{errs[0]}, {errs[1]}), kernel launches {counts}, a handed-out "
+          f"state kept  [{card}]")
+    del engine, eager, b1, held, copy
+    out["graph"] = {}
+    for shape in (MAIN_SHAPE, LANE_SHAPE):
+        p = bitpack.pack(seeds.bernoulli(gen, shape, 0.5))
+        warm = Engine.from_packed(p, "B3/S23", backend="packed")
+        if not warm.aot_loaded:   # the manifest holds no 1024^2 packed spec
+            aot_registry.serialize_engine(warm)
+            warm = Engine.from_packed(p, "B3/S23", backend="packed")
+        check(warm.aot_loaded, f"{shape} engine not registry-served")
+        os.environ[aot_registry.ENV_AOT] = "0"
+        eager_engine = Engine.from_packed(p, "B3/S23", backend="packed")
+        del os.environ[aot_registry.ENV_AOT]
+        check(not eager_engine.aot_loaded, "GOLTPU_AOT=0 was not honoured")
+        n = 64
+        reps = 2 if shape == MAIN_SHAPE else 20
+        ms = {}
+        for kind in ["graph", "eager", "eager", "graph"]:
+            eng = warm if kind == "graph" else eager_engine
+            ms.setdefault(kind, []).append(
+                timed_ms(lambda: eng.step(n), reps) / n)
+        g_ms, e_ms = min(ms["graph"]), min(ms["eager"])
+        check(torch.equal(warm.state, eager_engine.state),
+              f"graph and eager engines diverged at {shape}")
+        print(f"plain packed B3/S23 {shape[0]}x{shape[1]} TORUS, Engine.step"
+              f"({n}): CUDA graphs {ms['graph']} ms/generation, eager "
+              f"{ms['eager']} ms/generation (best of each: {g_ms:.5f} vs "
+              f"{e_ms:.5f}, {e_ms / g_ms:.2f}x)  [{card}]")
+        out["graph"][shape[0]] = (g_ms, e_ms)
+        del warm, eager_engine, p
+    aot_cache.ensure_persistent_cache(home if home is not None else "")
+
+    # (4) serve --manifest on the warmed root
+    server = start_server(repo, work, "--manifest", manifest,
+                          "--cache-dir", warm_root)
+    try:
+        line = server.stdout.readline()
+        check(line.startswith("SERVE_PORT "), f"serve announced {line!r}")
+        port = int(line.split()[1])
+
+        def req(method, path, body=None):
+            data = json.dumps(body).encode() if body is not None else None
+            r = urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}", data=data, method=method),
+                timeout=120)
+            raw = r.read().decode()
+            return json.loads(raw) if r.headers.get(
+                "Content-Type", "").startswith("application/json") else raw
+
+        spec = {"rule": "B3/S23", "height": LANE_SHAPE[0],
+                "width": LANE_SHAPE[1], "topology": "torus"}
+        # growth through every rung: one lane of 1, 8, 64, then 256 slots
+        sids, slots = [], []
+        for i in range(WARM_SESSIONS):
+            sids.append(req("POST", "/sessions", {
+                "tenant": "warm", "spec": spec, "fill": 0.35,
+                "rng_seed": i})["sid"])
+            if len(sids) in (1, 8, 64, WARM_SESSIONS):
+                slots.append(req("GET", "/healthz")["lane_slots"])
+        check(slots == [1, 8, 64, 256], f"lane slots while growing {slots}")
+        for sid in sids[::8]:
+            info = req("POST", f"/sessions/{sid}/step", {"n": 100})
+            check(info["generation"] == 100, f"served step: {info}")
+        health = req("GET", "/healthz")
+        check(health["lane_slots_occupied"] == WARM_SESSIONS,
+              f"served lanes {health}")
+        text = req("GET", "/metrics")
+        misses = re.findall(r'goltpu_kernel_builds\{kind="miss"\} (\S+)', text)
+        hits = re.findall(r'goltpu_kernel_builds\{kind="hit"\} (\S+)', text)
+        check(not misses or float(misses[0]) == 0,
+              f"the warmed server built a kernel: {misses}")
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=120)
+        err = server.stderr.read()
+        check(rc == 0, f"serve exited {rc}: {err}")
+        warmed = [ln for ln in err.splitlines() if "warmed lane ladder" in ln]
+        check(len(warmed) == 1, f"serve --manifest printed {warmed}: {err}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    print(f"serve --manifest on the warmed root: {warmed[0].strip()!r}; "
+          f"{WARM_SESSIONS} sessions grown through lanes of {slots} slots, "
+          f"{len(sids[::8])} stepped 100 "
+          f"generations; kernel builds: hit {hits}, miss {misses or 0}  "
+          f"[{card}]")
+    shutil.rmtree(work)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"warm start phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+def start_server(repo: str, build_dir: str, *extra: str) -> subprocess.Popen:
     """``python -m gameoflifewithactors_torch serve`` on the card, on an
-    ephemeral port."""
+    ephemeral port, with ``extra`` flags."""
     return subprocess.Popen(
         [sys.executable, "-m", "gameoflifewithactors_torch", "serve",
          "--port", "0", "--flight-dump",
-         os.path.join(build_dir, "chip_smoke_serve.flight.jsonl")],
+         os.path.join(build_dir, "chip_smoke_serve.flight.jsonl"), *extra],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -1999,6 +2265,10 @@ def main() -> int:
     print(card)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
+    # the kernel build cache root every process of this run resolves alike
+    # (GOLTPU_CACHE_DIR, else gameoflifewithactors_torch/_build)
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+    print(f"kernel build cache: {aot_cache.ensure_persistent_cache()}")
     t0 = time.perf_counter()
     build_seconds = _build.build_all(KERNELS)
     print(f"build of {len(KERNELS)} sources, one nvcc each, all started "
@@ -2332,6 +2602,8 @@ def main() -> int:
     stamp("ghost, deep, sharded sparse and the batch mesh")
     observe_phase(cs, card, main_rates)
     stamp("the observed and supervised run")
+    warmstart_phase(cs, card, repo)
+    stamp("warm start")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)

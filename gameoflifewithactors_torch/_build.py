@@ -6,10 +6,13 @@ a shared library with a plain ``extern "C"`` interface and loaded with
 each. A source named in :data:`UNITS` is compiled as several translation
 units at once, the same file under different ``-D`` flags, one ``nvcc -c``
 each, and the objects are linked into its one library. Libraries go to
-``_build/`` beside this file, named by a hash of the source, the shared
+:data:`BUILD_DIR`, named by a hash of the source, the shared
 ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Importing this module needs no ``nvcc``;
-a build that fails raises with the compiler's output.
+unchanged one is loaded as it is. :data:`BUILD_DIR` is read at each call:
+:func:`.aot.cache.ensure_persistent_cache` points it at the kernel build
+cache root in effect (by default ``_build/cuda/`` beside this file;
+``--cache-dir`` or ``GOLTPU_CACHE_DIR`` move it). Importing this module
+needs no ``nvcc``; a build that fails raises with the compiler's output.
 
 Every build and every first load in a process lands in
 :data:`.obs.compile.COMPILE_LOG`: a library that ``nvcc`` built as a
@@ -35,7 +38,8 @@ from .obs import compile as obs_compile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(_HERE, "_build")
+# the default root's library directory; .aot.cache re-points it
+BUILD_DIR = os.path.join(_HERE, "_build", "cuda")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

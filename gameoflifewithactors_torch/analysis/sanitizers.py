@@ -8,17 +8,30 @@ library, so a warmed run must never run ``nvcc`` again (a build lands in
 :data:`..obs.compile.COMPILE_LOG` as a ``"cache_miss"`` event; loading
 an existing library is a ``"cache_hit"`` and costs nothing).
 :class:`RetraceSentinel` taps the log; :meth:`RetraceSentinel.check`
-raises :class:`RetraceError` naming what was built. The transfer guards
-of the JAX module wait for their own port (ROADMAP A17).
+raises :class:`RetraceError` naming what was built. With
+``GOLTPU_SANITIZE=1`` (:func:`enabled`) an engine served by the warm-start
+registry arms one and checks it after every step. The transfer guards of
+the JAX module wait for their own port (ROADMAP A17).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from typing import Iterator, List, Optional
 
 from ..obs import compile as obs_compile
+
+ENV_SANITIZE = "GOLTPU_SANITIZE"
+_ENABLED_VALUES = ("1", "true", "on", "yes")
+
+
+def enabled() -> bool:
+    """Is the opt-in sanitizer wiring live (``GOLTPU_SANITIZE=1``)?
+    Read per call, so a test can flip it with monkeypatch.setenv."""
+    return os.environ.get(ENV_SANITIZE, "").strip().lower() \
+        in _ENABLED_VALUES
 
 
 class RetraceError(AssertionError):

@@ -11,9 +11,9 @@ checkpoint (either package's), ``--list`` prints what ``--seed`` and
 (:mod:`.obs.report`), which ``python -m gameoflifewithactors_torch report
 PATH [--json] [--diff OTHER]`` reads back (a report of either package).
 ``python -m gameoflifewithactors_torch serve ...`` starts the session
-service (:mod:`.serve.frontend`). Counterpart of
-``gameoflifewithactors_tpu.cli`` for the ported flags and subcommands
-(``warmup`` waits for ROADMAP A16).
+service (:mod:`.serve.frontend`), and ``python -m
+gameoflifewithactors_torch warmup ...`` fills the warm-start caches
+(:mod:`.aot`). Counterpart of ``gameoflifewithactors_tpu.cli``.
 """
 
 from __future__ import annotations
@@ -180,6 +180,75 @@ def _report_cmd(argv: Sequence[str]) -> int:
     return 0
 
 
+def _warmup_cmd(argv: Sequence[str]) -> int:
+    """``python -m gameoflifewithactors_torch warmup``: the warmup pipeline
+    (README "Warm start") -- fill the kernel build cache and the runner
+    registry for a manifest of engine specs ahead of serving, so the
+    serving processes pay no ``nvcc``.
+
+    ``--manifest specs.json`` warms a JSON list of EngineSpec dicts;
+    ``--from-config`` warms the single spec the remaining (normal CLI)
+    flags describe, e.g.::
+
+        python -m gameoflifewithactors_torch warmup --from-config \\
+            --grid 4096x4096 --rule B3/S23 --backend packed
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="gameoflifewithactors_torch warmup",
+        description="build engine specs' kernels and registry records "
+                    "into the warm-start caches")
+    ap.add_argument("--manifest", metavar="PATH",
+                    help="JSON list of spec objects: {rule, shape|height/"
+                         "width, backend, topology, mesh, gens_per_exchange}")
+    ap.add_argument("--from-config", action="store_true",
+                    help="derive one spec from the remaining normal CLI "
+                         "flags (--grid/--rule/--backend/...)")
+    ap.add_argument("--cache-dir", default=None, metavar="PATH",
+                    help="cache root override (default: $GOLTPU_CACHE_DIR "
+                         "or gameoflifewithactors_torch/_build)")
+    ap.add_argument("--no-aot", action="store_true",
+                    help="fill the kernel build cache only; skip writing "
+                         "registry records")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the warmup report as one JSON line")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the specs' engines run (default cuda)")
+    args, rest = ap.parse_known_args(argv)
+    if bool(args.manifest) == bool(args.from_config):
+        ap.error("exactly one of --manifest / --from-config is required")
+    if rest and not args.from_config:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+
+    from .aot import EngineSpec, warmup_specs
+    from .aot.warmup import load_manifest_entries
+
+    if args.manifest:
+        # (spec, extras) pairs: entries carrying a "lanes" ladder also
+        # warm the serve layer's lane kernel (README "Serving")
+        specs = load_manifest_entries(args.manifest)
+    else:
+        cfg, _ = from_args(rest)
+        cfg.device = args.device
+        specs = [EngineSpec.from_config(cfg)]
+    rows = warmup_specs(
+        specs, aot=not args.no_aot, cache_dir=args.cache_dir,
+        device=args.device,
+        verbose=None if args.json else
+        (lambda line: print(line, file=sys.stderr)))
+    if args.json:
+        import json
+
+        print(json.dumps({"warmup": True, "specs": rows}))
+    else:
+        total = sum(r["wall_seconds"] for r in rows)
+        compiling = sum(r["compile_seconds"] for r in rows)
+        print(f"warmed {len(rows)} spec(s) in {total:.2f}s "
+              f"({compiling:.2f}s compiling); next process warm-starts")
+    return 0
+
+
 def _check_supervise(cfg, needs_pacing: bool) -> None:
     """The JAX CLI's refusals of ``--supervise``: it restores from the
     checkpoint it keeps, and it owns the tick loop."""
@@ -198,6 +267,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(argv) if argv is not None else sys.argv[1:]
     if argv and argv[0] == "report":
         return _report_cmd(argv[1:])
+    if argv and argv[0] == "warmup":
+        return _warmup_cmd(argv[1:])
     if argv and argv[0] == "serve":
         # multi-tenant session service: live grid sessions on batched
         # lanes behind an HTTP/JSON API

@@ -8,10 +8,12 @@ generations per halo exchange, checkpoint and resume, supervision
 (``--supervise``, ``--checkpoint-every``, ``--max-restarts``), the
 telemetry flags (``--telemetry-out``, ``--stall-deadline``,
 ``--flight-dump``, ``--serve-metrics``, ``--device-poll``,
-``--profile-sample``), the PPM and RLE outputs, and ``--list``.
-``SimulationConfig.build()`` assembles the mesh, the coordinator (from a
-checkpoint with ``resume``) and the scheduler, so the CLI and library
-users share one construction path.
+``--profile-sample``), the PPM and RLE outputs, ``--cache-dir`` (the
+kernel build cache root, :mod:`.aot.cache`) and ``--list``.
+``SimulationConfig.build()`` points the kernel builds at the cache root,
+then assembles the mesh, the coordinator (from a checkpoint with
+``resume``) and the scheduler, so the CLI and library users share one
+construction path.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ class SimulationConfig:
     #                                         default <telemetry_out>.flight.jsonl
     device_poll: Optional[float] = None     # device-sampler interval seconds
     profile_sample: Optional[float] = None  # sampling-profiler period seconds
+    cache_dir: Optional[str] = None         # warm-start cache root (aot/);
+    #                                         None = GOLTPU_CACHE_DIR env or
+    #                                         gameoflifewithactors_torch/_build
 
     # -- assembly ------------------------------------------------------------
 
@@ -125,11 +130,15 @@ class SimulationConfig:
         """Construct the (mesh, coordinator, scheduler) stack; with
         ``resume``, the coordinator wraps the checkpoint's engine (its
         grid, rule, topology and generation win over the config's)."""
+        from .aot import cache as aot_cache
         from .coordinator import GridCoordinator
         from .models import seeds as seeds_lib
         from .scheduler import TickScheduler
         from .utils import checkpoint as ckpt_lib
 
+        # before any engine exists, so an explicit --cache-dir governs
+        # every kernel build of the run (Engine re-ensures idempotently)
+        aot_cache.ensure_persistent_cache(self.cache_dir)
         mesh = self.build_mesh()
         if self.resume:
             engine = ckpt_lib.load_engine(self.resume, mesh=mesh,
@@ -298,6 +307,12 @@ def make_parser() -> argparse.ArgumentParser:
                    help="with --telemetry-out: flag any tick exceeding S "
                         "seconds, naming the last-completed span "
                         "(default 60)")
+    p.add_argument("--cache-dir", default=None, metavar="PATH",
+                   help="warm-start cache root (the kernel libraries nvcc "
+                        "builds + the runner registry; README 'Warm "
+                        "start'). Default: $GOLTPU_CACHE_DIR, else "
+                        "gameoflifewithactors_torch/_build; pass '' to "
+                        "disable caching for this run")
     p.add_argument("--resume", default=None, metavar="PATH",
                    help="resume from a checkpoint (the checkpoint's grid/rule/"
                         "seed/topology win; --grid/--rule/--seed/--topology "
@@ -347,5 +362,6 @@ def from_args(argv=None) -> "tuple[SimulationConfig, argparse.Namespace]":
         flight_dump=args.flight_dump,
         device_poll=args.device_poll,
         profile_sample=args.profile_sample,
+        cache_dir=args.cache_dir,
     )
     return cfg, args

@@ -28,6 +28,9 @@ import warnings
 import numpy as np
 import torch
 
+from .analysis import sanitizers
+from .aot import cache as aot_cache
+from .aot import registry as aot_registry
 from .models.elementary import ElementaryRule
 from .models.generations import GenRule, parse_any
 from .models.ltl import LtLRule
@@ -223,9 +226,13 @@ class Engine:
             else np.shape(grid)
         if len(shape) != 2:
             raise ValueError(f"grid must be 2D, got shape {shape}")
+        # warm start (aot/): every kernel built below lands in the cache
+        # root (GOLTPU_CACHE_DIR; default gameoflifewithactors_torch/_build)
+        aot_cache.ensure_persistent_cache()
         self._configure(rule, topology, backend, device, mesh, shape,
                         gens_per_exchange, sparse_opts)
         self._adopt(self._encode(self._cells(grid)))
+        self._warm_start()
 
     @classmethod
     def from_packed(
@@ -251,6 +258,7 @@ class Engine:
             packed = words
         else:
             packed = state_from_numpy(words)
+        aot_cache.ensure_persistent_cache()
         self = cls.__new__(cls)
         h, wp = packed.shape[-2:]
         self._configure(rule, topology, backend, device, mesh,
@@ -268,6 +276,7 @@ class Engine:
             packed = unpack_generations(packed) if want else \
                 bitpack.unpack(packed)
         self._adopt(packed)
+        self._warm_start()
         return self
 
     def _configure(self, rule, topology: Topology, backend: str, device,
@@ -586,6 +595,26 @@ class Engine:
             return
         self._state = None
 
+    def _warm_start(self) -> None:
+        """Warm-start layer 2: when the registry holds a record for this
+        exact (spec, environment), serve the plain runner from it (CUDA
+        graphs on the card). One hash and one stat when nothing is
+        registered; any load problem warns and keeps the normal runner.
+        With ``GOLTPU_SANITIZE=1`` a registry-served engine, which claims
+        no build cost, arms a retrace sentinel checked after every step
+        (cold engines are exempt: their first steps legitimately build)."""
+        self.aot_loaded = False
+        self._aot_run = None
+        self._retrace_sentinel = None
+        if self.mesh is None and self.backend not in _TILED_BACKENDS:
+            self._aot_run = aot_registry.maybe_load_for_engine(self)
+            self.aot_loaded = self._aot_run is not None
+        if self.aot_loaded and sanitizers.enabled():
+            self._retrace_sentinel = sanitizers.RetraceSentinel(
+                context=f"warm-started engine ({self.rule.notation} "
+                        f"{self.shape[0]}x{self.shape[1]} "
+                        f"{self.backend})").arm()
+
     def _place(self, state: torch.Tensor):
         """The encoded state on the mesh (full-width bands for the band
         runners, 2D tiles otherwise), or as it is without a mesh."""
@@ -597,6 +626,8 @@ class Engine:
     def _run(self, state, n: int):
         if self._runner is not None:
             return self._runner(state, n)
+        if self._aot_run is not None:
+            return self._aot_run(state, n)
         rule, topology = self.rule, self.topology
         if isinstance(rule, GenRule):
             if self.backend == "cuda":
@@ -646,6 +677,8 @@ class Engine:
             else:
                 self._state = self._run(self._state, n)
         self.generation += n
+        if self._retrace_sentinel is not None:
+            self._retrace_sentinel.check()
 
     def block_until_ready(self) -> None:
         """Wait until the device (every device of the mesh) has finished

@@ -5,14 +5,17 @@ The event types of ``gameoflifewithactors_tpu.obs.compile``. This package
 has no jit: what compiles is a kernel library. ``_build`` records one
 :class:`CompileEvent` per library it builds or loads: ``kind="cache_miss"``
 when ``nvcc`` ran (seconds to minutes on the first call of a tick), and
-``"cache_hit"`` when an existing ``.so`` was loaded (no compile). Only
-misses count as compile seconds, so
+``"cache_hit"`` when an existing ``.so`` was loaded (no compile), and
+:func:`record_aot_load` one ``"aot_loaded"`` event per runner the
+warm-start registry (:mod:`..aot.registry`) serves. Only misses count as
+compile seconds, so
 ``COMPILE_LOG.compile_seconds_between`` tells ``GridCoordinator.tick`` how
 much of its wall time was a build, as in the JAX package.
 
 :func:`tracked_call` runs a call and records one event when kernel builds
 or loads landed inside it (:func:`note_kernel_build` counts them, as the
-JAX module's persistent-cache listener counts cache events).
+JAX module's persistent-cache listener counts cache events, under one
+name: there is no second counter).
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ class CompileEvent:
     t0: float              # perf_counter at call start
     t1: float              # perf_counter at completion
     # "cache_miss" = nvcc built the library; "cache_hit" = an existing
-    # .so was loaded (no compile). Only "cache_miss" events count toward
+    # .so was loaded (no compile); "aot_loaded" = a registry record served
+    # the runner (aot/registry.py). Only "cache_miss" events count toward
     # compile-second totals.
     kind: str = "cache_miss"
 
@@ -148,6 +152,22 @@ def record_build(runner: str, signature: str, t0: float, t1: float, *,
                            "wall seconds of kernel library builds"
                            ).observe(t1 - t0, runner=runner)
     return ev
+
+
+def record_aot_load(runner: str, signature: str, wall_seconds: float,
+                    *, log: CompileEventLog = None) -> None:
+    """Record that a registry record served a runner (aot/registry.py
+    calls this at load time; on the card the load includes the CUDA-graph
+    capture). Attributed like a compile event so the RunReport tells the
+    whole warm-start story, but never counted as compile seconds."""
+    t1 = time.perf_counter()
+    (log if log is not None else COMPILE_LOG).record(CompileEvent(
+        runner=runner, signature=signature, wall_seconds=wall_seconds,
+        cache_miss=False, donated=False, t0=t1 - wall_seconds, t1=t1,
+        kind="aot_loaded"))
+    REGISTRY.counter(
+        "aot_loads", "registry records that served a runner"
+    ).inc(runner=runner)
 
 
 def tracked_call(target: Callable, runner: str, args: tuple, kwargs: dict,

@@ -51,11 +51,9 @@ def neighbor_counts_ext(ext: torch.Tensor) -> torch.Tensor:
 def apply_rule(state: torch.Tensor, counts: torch.Tensor, rule: Rule) -> torch.Tensor:
     """Select the survive mask for live cells and the birth mask for dead
     ones, then test bit ``count`` of it."""
-    mask = torch.where(
-        state.bool(),
-        torch.tensor(rule.survive_mask, dtype=torch.int32, device=state.device),
-        torch.tensor(rule.birth_mask, dtype=torch.int32, device=state.device),
-    )
+    # scalar masks: no host-to-device copy, so the step can be captured in
+    # a CUDA graph (aot/registry.py)
+    mask = torch.where(state.bool(), rule.survive_mask, rule.birth_mask)
     return ((mask >> counts.to(torch.int32)) & 1).to(state.dtype)
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``gameoflifewithactors_tpu.serve.frontend``: the same
 routes, wire format, ``SERVE_PORT`` announce line, signal discipline and
 flags, plus ``--device`` (default ``cuda``; ``serve`` raises without a
-card unless given ``--device cpu``). ``--manifest`` (warm start from an
-``aot/`` manifest) waits for ROADMAP A16 and is refused.
+card unless given ``--device cpu``) and ``--cache-dir`` (the kernel build
+cache root, :mod:`..aot.cache`). ``--manifest`` (an ``aot/warmup.py``
+manifest) builds, before the port opens, the lane kernel of every entry
+that carries a ``lanes`` ladder.
 
 Same stdlib ``ThreadingHTTPServer`` idiom as obs/exporter.py — request
 threads translate JSON to :class:`SessionService` calls (the service
@@ -26,7 +28,8 @@ API (README "Serving" has the full table)::
     GET    /healthz                    JSON: ok + session/lane/queue counts
 
 Process shape (``python -m gameoflifewithactors_torch serve``): arm the
-flight recorder, start the HTTP server, announce ``SERVE_PORT <port>`` on
+flight recorder, warm the lane ladder from the manifest, start the HTTP
+server, announce ``SERVE_PORT <port>`` on
 stdout (the client protocol: ``chip_smoke.py`` and the tests parse it),
 then sit in the checkpoint loop until SIGTERM/SIGINT. Signal discipline: the graceful
 handler is installed FIRST and the flight recorder chains onto it
@@ -233,7 +236,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="HTTP port (0 = ephemeral; announced on stdout)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--manifest", default=None, metavar="PATH",
-                    help="warmup manifest: not ported yet (ROADMAP A16)")
+                    help="warmup manifest (aot/warmup.py format; entries "
+                         "may carry a 'lanes' capacity list)")
+    ap.add_argument("--cache-dir", default=None, metavar="PATH",
+                    help="warm-start cache root (default: $GOLTPU_CACHE_DIR "
+                         "or gameoflifewithactors_torch/_build; '' "
+                         "disables caching)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where lanes live and step (default cuda; cpu runs "
                          "the plain PyTorch paths)")
@@ -264,15 +272,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device-poll", type=float, default=1.0,
                     help="DeviceSampler interval feeding the HBM gauges")
     args = ap.parse_args(argv)
-    if args.manifest:
-        ap.error("--manifest (warm start from an aot/ manifest) is not yet "
-                 "ported to gameoflifewithactors_torch (ROADMAP A16)")
 
+    from ..aot import cache as aot_cache
     from ..obs.device import (DeviceSampler, cuda_memory_backend,
                               host_memory_backend)
     from ..resilience.supervisor import RestartPolicy
     from .lanes import LANE_LADDER
 
+    aot_cache.ensure_persistent_cache(args.cache_dir)
     ladder = (tuple(int(c) for c in args.ladder.split(","))
               if args.ladder else LANE_LADDER)
     admission = AdmissionController(
@@ -309,6 +316,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         if os.path.exists(args.checkpoint):
             n = service.resume()
             print(f"resumed {n} session(s) from {args.checkpoint}",
+                  file=sys.stderr)
+
+    if args.manifest:
+        from ..aot import warmup as warmup_lib
+
+        entries = warmup_lib.load_manifest_entries(args.manifest)
+        for spec, extras in entries:
+            if not extras.get("lanes"):
+                continue  # engine-only entry; `warmup` builds those
+            d = spec.canonical()
+            d["mesh"] = None  # lanes are single-device by contract
+            key = service.warm(d)
+            print(f"warmed lane ladder {service.ladder} for {key}",
                   file=sys.stderr)
 
     sampler = DeviceSampler(

@@ -56,7 +56,8 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "memory.paged", "obs.watchdog", "obs.report", "obs.profiler",
              "obs.cost", "obs.diff", "obs.aggregate", "utils.profiling",
              "utils.provenance", "utils.fault", "analysis.sanitizers",
-             "resilience.faultplan"):
+             "resilience.faultplan", "aot", "aot.cache", "aot.spec",
+             "aot.registry", "aot.warmup"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -70,7 +71,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(" ", 1)
-    assert int(count) >= 57   # every module: rule families, obs, serve, mesh, ...
+    assert int(count) >= 62   # every module: rule families, obs, serve, aot, ...
     assert loaded.strip() == "[]"
 
 
@@ -104,14 +105,19 @@ main(["--device", "cpu", "--grid", "48x96", "--steps", "40", "--supervise",
       "--checkpoint-every", "20", "--checkpoint", sys.argv[1] + "/c.npz",
       "--telemetry-out", sys.argv[1] + "/r.json", "--profile-sample", "5"])
 main(["report", sys.argv[1] + "/r.json", "--diff", sys.argv[1] + "/r.json"])
+# warm start: the warmup pipeline and a registry-served engine
+main(["warmup", "--from-config", "--device", "cpu", "--json", "--cache-dir",
+      sys.argv[1] + "/warm", "--grid", "32x64", "--backend", "packed"])
+assert Engine(np.zeros((32, 64), np.uint8), "B3/S23", backend="packed",
+              device="cpu").aot_loaded
 """
 
 
 def test_the_tiled_backends_run_with_jax_blocked(tmp_path):
     """The memory/ package, the paged universe, the sparse engine and the
     checkpoint module import and step with every import of ``jax`` and the
-    JAX package refused; so do a supervised, observed CLI run and the
-    ``report`` subcommand."""
+    JAX package refused; so do a supervised, observed CLI run, the
+    ``report`` subcommand, ``warmup`` and a registry-served engine."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
                          cwd=_REPO, capture_output=True, text=True,
                          timeout=120)

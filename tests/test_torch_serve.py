@@ -357,7 +357,11 @@ def test_serve_entry_point_on_the_cpu(tmp_path):
             proc.kill()
             proc.wait()
     assert os.path.exists(ck)
+    # --manifest is read now (no longer refused): a missing file fails
+    # before the port opens, naming the file, as the JAX server does
+    missing = str(tmp_path / "m.json")
     out = subprocess.run([sys.executable, "-m", "gameoflifewithactors_torch",
-                          "serve", "--device", "cpu", "--manifest", "m.json"],
+                          "serve", "--device", "cpu", "--manifest", missing],
                          cwd=_REPO, capture_output=True, text=True, timeout=60)
-    assert out.returncode != 0 and "A16" in out.stderr
+    assert out.returncode != 0 and "SERVE_PORT" not in out.stdout
+    assert "FileNotFoundError" in out.stderr and missing in out.stderr
