@@ -89,7 +89,19 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    200 generations, launching no kernel, its ms per generation against
    the eager runner at 16384² and 1024²; ``serve --manifest`` on the
    warmed root (the ladder warmed, sessions grown through every rung,
-   no build).
+   no build). The multi-process run (``multiprocess_phase``), two gloo
+   processes sharing the card (``chip_smoke.py --band-worker RANK WORLD
+   PORT WORK`` each): on a flattened (2, 2) global mesh, two bands per
+   process, B2's slab form steps the 16384^2 B3/S23 state of the main
+   path 2000 generations further, equal to the single-device B1 run, and
+   B3's and B4's slab forms step brain and Bosco at 4096^2 DEAD, equal to
+   their engines; each process launches its slab form once per chunk and
+   no full-grid kernel, its chunk timed against the same runner on a
+   single-process (2, 2) mesh, with the bytes staged through host memory;
+   the elastic fleet (two workers, 4096^2, a ``process_kill`` at the
+   midpoint, detection and recovery seconds, ``final.npy`` equal to B1);
+   the soak worker's packed flavor SIGKILLed and resumed, equal to an
+   unfaulted run.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -2233,6 +2245,377 @@ def drive_server(proc: subprocess.Popen) -> None:
           "(== in-process)/delete/healthz/metrics over HTTP, SIGTERM exit 0")
 
 
+MP_PROCESSES = 2               # gloo processes sharing the one card
+MP_MESH = (2, 2)               # flattened: two full-width bands per process
+MP_GENERATIONS = 2000          # (a)'s 16384^2 B3/S23 run
+FLEET_SHAPE = (4096, 4096)     # (b) the elastic fleet, B3/S23 TORUS
+FLEET_GENERATIONS = 400
+FLEET_CHUNK = 100
+SOAK_SHAPE = (4096, 4096)      # (c) the soak worker, the packed flavor
+SOAK_GENERATIONS = 400
+SOAK_CHUNK = 100
+BAND_RUNNERS = {  # rule -> (sharded runner, slab kernel, full-grid kernel, depth)
+    "B3/S23": ("make_multi_step_kernel", "life_slab", "life_packed",
+               "DEFAULT_BAND_GENS_PER_CALL"),
+    "brain": ("make_multi_step_generations_kernel", "life_generations_slab",
+              "life_generations", "DEFAULT_GENERATIONS_GENS_PER_CALL"),
+    "bosco": ("make_multi_step_ltl_kernel", "life_ltl_slab", "life_ltl",
+              "DEFAULT_LTL_GENS_PER_CALL"),
+}
+
+
+def _words(state) -> np.ndarray:
+    """A card tensor of int32 words (or planes) as host uint32 words."""
+    return state.cpu().numpy().view(np.uint32)
+
+
+def _got_path(work: str, name: str) -> str:
+    return os.path.join(work, f"mp_got_{name.replace('/', '')}.npy")
+
+
+def band_worker(rank: int, world: int, port: int, work: str) -> int:
+    """One process of a gloo group on card 0 (``chip_smoke.py
+    --band-worker RANK WORLD PORT WORK``): for each run of
+    ``WORK/mp_plan.json`` the band runner of its rule on the global mesh,
+    counts set to 0 just before the timed run and read just after; rank 0
+    writes each ``gather_global`` result, every rank its counts, seconds
+    and bytes to ``WORK/mp_stats-r<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+    from gameoflifewithactors_torch.models.generations import parse_any
+    from gameoflifewithactors_torch.ops import cuda_stencil as cs
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel import halo, multihost, sharded
+
+    with open(os.path.join(work, "mp_plan.json")) as f:
+        plan = json.load(f)
+    aot_cache.ensure_persistent_cache()      # the parent's builds: no nvcc
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                         initialization_timeout=300)
+    mesh = multihost.global_mesh(tuple(plan["mesh"]),
+                                 [dev] * plan["per_process"])
+    check(mesh.spans_processes and len(mesh.groups) == 1,
+          f"rank {rank} holds {mesh.groups} of {mesh}")
+    stats = {}
+    for run in plan["runs"]:
+        maker, _, _, depth = BAND_RUNNERS[run["rule"]]
+        runner = getattr(sharded, maker)(mesh, parse_any(run["rule"]),
+                                         Topology(run["topology"]))
+        start = multihost.put_global_grid(np.load(run["start"]), mesh,
+                                          banded=True)
+        runner(start, 1)    # warm: the library's load, a first exchange
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches(cs)
+        moved, crossed = halo.exchanged_bytes(), halo.crossed_bytes()
+        t0 = time.perf_counter()
+        out = runner(start, run["generations"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats[run["name"]] = {
+            "launches": launches(cs), "wall": wall,
+            "chunks": math.ceil(run["generations"] / getattr(cs, depth)),
+            "exchanged": halo.exchanged_bytes() - moved,
+            "crossed": halo.crossed_bytes() - crossed}
+        got = multihost.gather_global(out)
+        if rank == 0:
+            np.save(_got_path(work, run["name"]), got)
+    dist.barrier()
+    with open(os.path.join(work, f"mp_stats-r{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    multihost.shutdown()
+    return 0
+
+
+def run_band_group(work: str, plan: dict, world: int = MP_PROCESSES,
+                   timeout: float = 600.0) -> list:
+    """``world`` band workers of this script on the card, started
+    together; returns each rank's stats. Fails on any worker's failure
+    and kills every worker still running at the timeout."""
+    import socket
+
+    with open(os.path.join(work, "mp_plan.json"), "w") as f:
+        json.dump(plan, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--band-worker", str(r),
+         str(world), str(port), work], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(not errors, "; ".join(errors))
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"mp_stats-r{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_band_group(work: str, plan: dict, stats: list, truths: dict) -> None:
+    """Every run's gathered grid equals its single-device truth bit for
+    bit, and each process launched its slab kernel once per chunk and the
+    full-grid kernel never."""
+    for run in plan["runs"]:
+        _, slab, full, _ = BAND_RUNNERS[run["rule"]]
+        got = np.load(_got_path(work, run["name"]))
+        check(np.array_equal(got, truths[run["name"]]),
+              f"{run['name']} across processes differs from the "
+              "single-device run")
+        for r, rank_stats in enumerate(stats):
+            s = rank_stats[run["name"]]
+            check(s["launches"][slab] == s["chunks"] > 0
+                  and s["launches"][full] == 0
+                  and all(v == 0 for k, v in s["launches"].items()
+                          if k != slab),
+                  f"{run['name']} rank {r} launched {s['launches']}, expected "
+                  f"{s['chunks']} of {slab} alone")
+            check(0 < s["crossed"] <= s["exchanged"],
+                  f"{run['name']} rank {r} bytes {s}")
+
+
+def fleet_on_card(work: str, shape, generations: int, chunk: int) -> dict:
+    """The elastic fleet of two gloo workers on the card, B3/S23 TORUS, a
+    ``process_kill`` of worker 1 at the midpoint: the survivor detects the
+    loss within the JAX package's bound, the replaced worker resumes from
+    the last verified sharded checkpoint, and ``final.npy`` equals the
+    single-device engine (kernel B1). Returns the fleet's report."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.resilience import (ElasticFleet,
+                                                       ElasticSpec, FaultEvent)
+    from gameoflifewithactors_torch.resilience.distributed import (
+        EXIT_PEER_LOST, initial_grid)
+
+    spec = ElasticSpec(shape=tuple(shape), target_gens=generations,
+                       chunk=chunk, chunk_sleep_seconds=0.25)
+    fleet = ElasticFleet(os.path.join(work, "fleet"), spec,
+                         num_processes=MP_PROCESSES, device="cuda",
+                         backend="gloo")
+    report = fleet.run([FaultEvent(worker=1, at_gen=generations // 2,
+                                   kind="process_kill")])
+    check(report["ok"], f"fleet: {json.dumps(report['epochs'])[-3000:]}")
+    fired = [e for e in report["epochs"] if e["fired"]]
+    bound = (spec.heartbeat_deadline_seconds + spec.barrier_deadline_seconds
+             + 20.0)
+    check(len(fired) == 1 and fired[0]["detection_seconds"] <= bound
+          and fired[0]["exit_codes"].count(EXIT_PEER_LOST) == 1,
+          f"fleet fault epochs: {fired}")
+    check(all(e["num_processes"] == MP_PROCESSES for e in report["epochs"]),
+          "the killed worker was not replaced")
+    truth = Engine(initial_grid(spec), spec.rule, backend="cuda",
+                   device="cuda")
+    truth.step(generations)
+    check(np.array_equal(np.load(report["final_grid"]), truth.snapshot()),
+          "the fleet's final.npy differs from the single-device engine")
+    del truth
+    torch.cuda.empty_cache()
+    return report
+
+
+def soak_on_card(work: str, shape, generations: int, every: int) -> dict:
+    """The soak worker's ``packed`` flavor on the card, SIGKILLed once its
+    health probe counts the first chunk's checkpoint, then relaunched with
+    ``--resume``: ``final.npy`` equals an unfaulted single-device run.
+    Returns the report and the seconds of both runs."""
+    import signal
+    import urllib.request
+
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.resilience.worker import genesis
+
+    workdir = os.path.join(work, "soak")
+    spec = {"name": "chip-soak", "flavor": "packed", "shape": list(shape),
+            "generations": generations, "checkpoint_every": every,
+            "rng_seed": 3, "workdir": workdir, "watchdog_deadline": 30.0,
+            "events": [], "device": "cuda", "chunk_sleep_seconds": 0.3}
+    spec_path = os.path.join(work, "soak.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "gameoflifewithactors_torch.resilience.worker",
+           "--spec", spec_path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("METRICS_PORT "), f"soak worker said {line!r}")
+        url = f"http://127.0.0.1:{int(line.split()[1])}/healthz"
+        deadline = time.perf_counter() + 300
+        while True:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                # the gen-0 save and the first chunk's are durable
+                if json.loads(r.read()).get("checkpoints", 0) >= 2:
+                    break
+            check(time.perf_counter() < deadline and proc.poll() is None,
+                  "the soak worker made no progress")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=60)
+    killed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = subprocess.run(cmd + ["--resume"], capture_output=True,
+                             text=True, timeout=600)
+    resumed_s = time.perf_counter() - t0
+    check(resumed.returncode == 0,
+          f"resumed soak worker exited {resumed.returncode}: "
+          f"{resumed.stderr[-3000:]}")
+    with open(os.path.join(workdir, "report.json")) as f:
+        report = json.load(f)
+    member = report["members"][0]
+    check(report["ok"] and report["resume"]
+          and every <= member["resumed_generation"] < generations
+          and member["final_generation"] == generations,
+          f"soak report: {report}")
+    truth = Engine(genesis(spec, 0), "B3/S23", backend="cuda", device="cuda")
+    truth.step(generations)
+    check(np.array_equal(np.load(os.path.join(workdir, "final.npy")),
+                         truth.snapshot()),
+          "the resumed soak worker's final grid differs from an unfaulted run")
+    return {"report": report, "killed_s": killed_s, "resumed_s": resumed_s}
+
+
+def multiprocess_phase(cs, card: str, dev, work: str) -> dict:
+    """Phase 3 across processes, on the one card: (a) the band runners of
+    B2's, B3's and B4's slab forms on a flattened (2, 2) global mesh of two
+    gloo processes (two bands each): phase 3's 16384^2 B3/S23 soup from
+    its 300th generation for 2000 more, equal to phase 3's single-device
+    B1 run (``WORK/mp_start.npy``, ``WORK/mp_truth.npy``), timed per chunk
+    against the same runner on a single-process (2, 2) mesh of the card,
+    with the bytes staged through host memory; brain and Bosco at 4096^2
+    DEAD equal to their engines; (b) the elastic fleet with a kill; (c)
+    the soak worker killed and resumed."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.models.rules import CONWAY
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel import sharded
+    from gameoflifewithactors_torch.parallel.mesh import (
+        device_put_sharded_grid, make_mesh)
+
+    t_phase = time.perf_counter()
+    out = {}
+    truths = {"B3/S23": np.load(os.path.join(work, "mp_truth.npy"))}
+    runs = [{"name": "B3/S23", "rule": "B3/S23", "topology": "torus",
+             "generations": MP_GENERATIONS,
+             "start": os.path.join(work, "mp_start.npy")}]
+    states = {"brain": 3, "bosco": 2}
+    for spec in ("brain", "bosco"):
+        cells = (np.random.default_rng(5).random(MESH_DEAD_SHAPE)
+                 * states[spec]).astype(np.uint8)
+        alone = Engine(cells, spec, topology=Topology.DEAD, backend="cuda",
+                       device=dev)
+        start = os.path.join(work, f"mp_start_{spec}.npy")
+        np.save(start, _words(alone.state))
+        alone.step(MAIN_GENERATIONS)
+        truths[spec] = _words(alone.state)
+        runs.append({"name": spec, "rule": spec, "topology": "dead",
+                     "generations": MAIN_GENERATIONS, "start": start})
+        del alone
+    plan = {"mesh": list(MP_MESH), "per_process": 2, "runs": runs}
+    t0 = time.perf_counter()
+    stats = run_band_group(work, plan)
+    group_s = time.perf_counter() - t0
+    check_band_group(work, plan, stats, truths)
+
+    # the same B2 runner on a single-process (2, 2) mesh of the card
+    smesh = make_mesh(MP_MESH, [dev] * 4)
+    run = sharded.make_multi_step_kernel(smesh, CONWAY)
+    placed = device_put_sharded_grid(
+        torch.from_numpy(np.load(runs[0]["start"]).view(np.int32)).to(dev),
+        smesh, banded=True)
+    run(placed, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = run(placed, MP_GENERATIONS)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(_words(single.gather()), truths["B3/S23"]),
+          "the single-process (2, 2) mesh differs from phase 3's B1 run")
+    del single, placed
+    for name in ("B3/S23", "brain", "bosco"):
+        s = [rank_stats[name] for rank_stats in stats]
+        chunks = s[0]["chunks"]
+        ms = max(x["wall"] for x in s) * 1e3 / chunks
+        slab = BAND_RUNNERS[name][1]
+        line = (f"multi-process (a): {name} "
+                + (f"{MAIN_SHAPE[0]}^2 TORUS from phase 3's generation "
+                   f"{MAIN_GENERATIONS}, {MP_GENERATIONS} generations"
+                   if name == "B3/S23" else
+                   f"{MESH_DEAD_SHAPE[0]}^2 DEAD, {MAIN_GENERATIONS} "
+                   "generations")
+                + f" on a flattened {MP_MESH} global mesh of "
+                f"{MP_PROCESSES} gloo processes on {dev} (two bands each): "
+                f"{chunks} chunks, {[x['launches'][slab] for x in s]} {slab} "
+                f"launches per process, no full-grid kernel; gather_global == "
+                f"the single-device run bit for bit; {ms:.4f} ms per chunk; "
+                f"host-staged bytes per chunk per process "
+                f"{[x['crossed'] // chunks for x in s]} received (as many "
+                f"sent), of {[x['exchanged'] // chunks for x in s]} exchanged")
+        if name == "B3/S23":
+            one = single_ms / chunks
+            line += (f"; the same runner on a single-process {MP_MESH} mesh "
+                     f"of the card: {one:.4f} ms per chunk (ratio "
+                     f"{ms / one:.3f})")
+            out["chunk_ms"], out["single_chunk_ms"] = ms, one
+            out["staged_bytes"] = s[0]["crossed"] // chunks
+        print(line + f"  [{card}]")
+    print(f"multi-process (a): the group of {MP_PROCESSES} workers, spawn to "
+          f"exit, {group_s:.1f} s  [{card}]")
+    stamp_b = time.perf_counter()
+    report = fleet_on_card(work, FLEET_SHAPE, FLEET_GENERATIONS, FLEET_CHUNK)
+    fired = [e for e in report["epochs"] if e["fired"]][0]
+    after = report["epochs"][-1]
+    out["detection_s"] = fired["detection_seconds"]
+    out["recovery_s"] = after["recovery_seconds"]
+    print(f"multi-process (b): elastic fleet, {MP_PROCESSES} gloo workers on "
+          f"{dev}, {FLEET_SHAPE[0]}^2 B3/S23 TORUS, chunks of {FLEET_CHUNK} "
+          f"to {FLEET_GENERATIONS}, process_kill of worker 1 at generation "
+          f"{fired['fired'][0]['fired_at_gen']}: detected in "
+          f"{out['detection_s']:.3f} s (survivor exit codes "
+          f"{fired['exit_codes']}; bound "
+          f"{report['spec']['heartbeat_deadline_seconds'] + report['spec']['barrier_deadline_seconds'] + 20:.0f}"
+          f" s), recovery (fault to the "
+          f"rebuilt fleet's first heartbeat) {out['recovery_s']:.3f} s, "
+          f"{len(report['epochs'])} epochs, startup "
+          f"{[e.get('startup_seconds') for e in report['epochs']]} s; "
+          f"final.npy == the single-device engine; fleet "
+          f"{time.perf_counter() - stamp_b:.1f} s  [{card}]")
+    soak = soak_on_card(work, SOAK_SHAPE, SOAK_GENERATIONS, SOAK_CHUNK)
+    member = soak["report"]["members"][0]
+    print(f"multi-process (c): soak worker, packed flavor on {dev}, "
+          f"{SOAK_SHAPE[0]}^2, {SOAK_GENERATIONS} generations, checkpoint "
+          f"every {SOAK_CHUNK}: SIGKILLed after {soak['killed_s']:.1f} s, "
+          f"--resume from generation {member['resumed_generation']} "
+          f"({soak['resumed_s']:.1f} s, exit 0); final.npy == an unfaulted "
+          f"single-device run  [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"multi-process phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2467,6 +2850,9 @@ def main() -> int:
          lambda s, n, rule: cs.multi_step_ltl_reference(s, n, rule=rule),
          bitpack.population),
     ]
+    # the multi-process phase's start and truth: the B3/S23 path's state
+    # after its main path and after its timed tick
+    mp_work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
     for kernel, spec, g, plain, plain_population in paths:
         coord = GridCoordinator(MAIN_SHAPE, spec, random_fill=0.5, rng_seed=1,
                                 device="cuda", view_shape=(40, 80))
@@ -2509,6 +2895,10 @@ def main() -> int:
         timed = launches(cs)[kernel]
         main_rates[kernel] = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
         main_rates[spec] = main_rates[kernel]
+        if spec == "B3/S23":
+            np.save(os.path.join(mp_work, "mp_start.npy"), _words(want))
+            np.save(os.path.join(mp_work, "mp_truth.npy"),
+                    _words(coord.engine.state))
         print(f"main path timed ({spec}): 2000 generations in one tick, "
               f"{timed} {kernel} launches, "
               f"{wall:.4f} s host clock incl. sync, {main_rates[kernel]:.4e} "
@@ -2604,6 +2994,9 @@ def main() -> int:
     stamp("the observed and supervised run")
     warmstart_phase(cs, card, repo)
     stamp("warm start")
+    multiprocess_phase(cs, card, dev, mp_work)
+    shutil.rmtree(mp_work)
+    stamp("the multi-process run")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)
@@ -2904,4 +3297,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--band-worker"]:
+        sys.exit(band_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -130,6 +130,17 @@ def ensure_persistent_cache(explicit: Optional[str] = None) -> Optional[str]:
         return None if root is None else target
 
 
+def cache_root() -> Optional[str]:
+    """The cache root in effect: the one :func:`ensure_persistent_cache`
+    configured, else the one it would resolve; None when caching is
+    disabled. A launcher hands it to its children as
+    ``GOLTPU_CACHE_DIR``, so that they load what this process built."""
+    with _lock:
+        if _state["attempted"]:
+            return _state["root"]
+    return resolve_cache_root()
+
+
 def current_cache_dir() -> Optional[str]:
     """The kernel library directory this process configured (None when
     caching is disabled or not yet enabled)."""

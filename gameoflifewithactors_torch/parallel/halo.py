@@ -2,10 +2,11 @@
 
 Counterpart of ``gameoflifewithactors_tpu.parallel.halo``, where each
 device ``ppermute``s strips of its tile to its mesh neighbours inside
-``shard_map``. Here one process holds every position's block
+``shard_map``. Here a process holds its positions' blocks
 (:class:`.mesh.ShardedGrid`: one stacked tensor per device), and a
 position's halo is its neighbour's edge strip, taken from whichever
-device's stack holds that neighbour:
+device's stack holds that neighbour, or sent by the process that holds
+it (:func:`transfer`):
 
 - :func:`exchange_rows` -- ``depth`` rows above and below each block,
   along ROW_AXIS or the flattened band axis ``(ROW_AXIS, COL_AXIS)``;
@@ -26,12 +27,15 @@ blocks (the ghost-zone runner sends freshly stepped boundary rings).
 On a batch mesh (:class:`.mesh.BatchMesh`) every batch replica is its
 own spatial mesh: neighbours are found within it.
 
-Every exchange adds the bytes of the strips that move between *distinct*
-mesh positions to this thread's running total,
-:func:`exchanged_bytes`: a self-send on a size-1 TORUS axis and the
-zeros at a DEAD edge count nothing, as the JAX package's
-``collective_permute_bytes`` counts pairs of positions (not devices:
-two positions on one device still count).
+Every exchange adds the bytes of the strips that this process's
+positions receive from *distinct* mesh positions to this thread's
+running total, :func:`exchanged_bytes`: a self-send on a size-1 TORUS
+axis and the zeros at a DEAD edge count nothing, as the JAX package's
+``collective_permute_bytes`` counts pairs of positions (not devices: two
+positions on one device still count). Summed over the processes of a
+mesh it is the single-process count. The share of it that came from
+another process is :func:`crossed_bytes` (the JAX package's per-process
+``local_frac`` of the wire bytes).
 
 The one-band helpers :func:`exchange_rows_stack` and
 :func:`exchange_halo_stack` serve the batched serving lanes, whose batch
@@ -41,7 +45,7 @@ members are independent universes, each its own single-band mesh.
 from __future__ import annotations
 
 import threading
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,13 +56,82 @@ _MOVED = threading.local()
 
 
 def exchanged_bytes() -> int:
-    """This thread's running total of halo bytes moved between distinct
-    mesh positions; a measurement reads it before and after."""
+    """This thread's running total of halo bytes its process's positions
+    received from distinct mesh positions; a measurement reads it before
+    and after."""
     return getattr(_MOVED, "total", 0)
 
 
-def _moved(nbytes: int) -> None:
+def crossed_bytes() -> int:
+    """The part of :func:`exchanged_bytes` that arrived from another
+    process."""
+    return getattr(_MOVED, "crossed", 0)
+
+
+def _moved(nbytes: int, crossed: bool = False) -> None:
     _MOVED.total = exchanged_bytes() + nbytes
+    if crossed:
+        _MOVED.crossed = crossed_bytes() + nbytes
+
+
+def transfer(mesh: Mesh, moves: Sequence[Tuple[int, int, int]],
+             take: Callable[[int, int], torch.Tensor]
+             ) -> Dict[Tuple[int, int], torch.Tensor]:
+    """The strips of one exchange: ``moves`` lists every ``(source,
+    destination, direction)`` of the exchange, mesh-wide and alike on
+    every process; ``take(q, d)`` is the strip this process's position
+    ``q`` sends in direction ``d`` (every position's strip of one
+    direction has one shape). Returns ``{(p, d): strip}`` for every
+    destination ``p`` of this process, on ``p``'s device.
+
+    Between positions of this process a strip moves by ``.to(device,
+    non_blocking=True)`` (a peer copy between two GPUs, nothing between
+    positions of one device). A strip between processes is one message:
+    every process posts its sends and receives in the order of ``moves``
+    sorted by (source, destination, direction), tagged by that triple,
+    in one ``torch.distributed.batch_isend_irecv``, and waits for all of
+    them, so no two processes can wait on each other. Under gloo, whose
+    send and receive take CPU tensors only, a CUDA strip is staged
+    through host memory; under NCCL it goes from the device."""
+    import torch.distributed as dist
+
+    rank, n, owner = mesh.rank, mesh.size, mesh.owner_of
+    got: Dict[Tuple[int, int], torch.Tensor] = {}
+    ops, landed = [], []
+    host = None
+    for q, p, d in sorted(moves):
+        src, dst = owner[q], owner[p]
+        if rank not in (src, dst):
+            continue
+        if src == dst:
+            strip = take(q, d)
+            if q != p:
+                _moved(strip.numel() * strip.element_size())
+            got[(p, d)] = strip.to(mesh.groups[mesh.slot_of[p][0]][0],
+                                   non_blocking=True)
+            continue
+        if host is None:
+            host = dist.get_backend() == "gloo"
+        tag = (d * n + q) * n + p
+        if src == rank:
+            strip = take(q, d).contiguous()
+            ops.append(dist.P2POp(dist.isend,
+                                  strip.cpu() if host else strip, dst,
+                                  tag=tag))
+        else:
+            device = mesh.groups[mesh.slot_of[p][0]][0]
+            like = take(mesh.positions[0], d)
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if host else device)
+            ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+            landed.append((p, d, buf, device))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for p, d, buf, device in landed:
+        _moved(buf.numel() * buf.element_size(), crossed=True)
+        got[(p, d)] = buf.to(device, non_blocking=True)
+    return got
 
 
 def band_edge_code(nbands: int = 1, index: int = 0) -> int:
@@ -111,31 +184,26 @@ def _sources(mesh: Mesh, axis, step: int, wrap: bool) -> List[Optional[int]]:
     return out
 
 
-def _neighbour_strips(parts: Sequence[torch.Tensor], mesh: Mesh,
-                      sources: List[Optional[int]],
-                      strip: Callable[[torch.Tensor], torch.Tensor]
-                      ) -> List[torch.Tensor]:
-    """Per device, the stacked ``strip`` of each of its positions' source
-    blocks, zeros where a source is None. A source on another device
-    arrives by ``.to(device, non_blocking=True)``, a peer copy that only
-    a machine with several GPUs performs; between positions of one device
-    the same call returns the strip as it is, so one code path serves
-    both. The strips from other positions count in
-    :func:`exchanged_bytes`."""
+def _neighbour_strips(mesh: Mesh, directions: Sequence[tuple]
+                      ) -> List[List[torch.Tensor]]:
+    """For each direction ``(parts, sources, strip)``, per device the
+    stacked ``strip`` of each of its positions' source blocks, zeros where
+    a source is None; every direction's strips in one :func:`transfer`."""
+    moves = [(q, p, d) for d, (_, sources, _) in enumerate(directions)
+             for p, q in enumerate(sources) if q is not None]
+
+    def take(q, d):
+        parts, _, strip = directions[d]
+        g, s = mesh.slot_of[q]
+        return strip(parts[g][s:s + 1])
+
+    got = transfer(mesh, moves, take)
     out = []
-    for (device, positions), own in zip(mesh.groups, parts):
-        pieces = []
-        for p in positions:
-            q = sources[p]
-            if q is None:
-                pieces.append(torch.zeros_like(strip(own[:1])))
-            else:
-                g, s = mesh.slot_of[q]
-                piece = strip(parts[g][s:s + 1])
-                if q != p:
-                    _moved(piece.numel() * piece.element_size())
-                pieces.append(piece.to(device, non_blocking=True))
-        out.append(torch.cat(pieces))
+    for d, (parts, sources, strip) in enumerate(directions):
+        out.append([torch.cat([
+            got[(p, d)] if sources[p] is not None
+            else torch.zeros_like(strip(own[:1])) for p in positions])
+            for (_, positions), own in zip(mesh.groups, parts)])
     return out
 
 
@@ -148,10 +216,9 @@ def _parts_exchange(first: Sequence[torch.Tensor],
     the ``first`` strips of the positions after (my south or east
     halo)."""
     wrap = topology is Topology.TORUS
-    before = _neighbour_strips(second, mesh, _sources(mesh, axis, 1, wrap),
-                               lambda t: t)
-    after = _neighbour_strips(first, mesh, _sources(mesh, axis, -1, wrap),
-                              lambda t: t)
+    before, after = _neighbour_strips(mesh, [
+        (second, _sources(mesh, axis, 1, wrap), lambda t: t),
+        (first, _sources(mesh, axis, -1, wrap), lambda t: t)])
     return before, after
 
 
@@ -192,10 +259,10 @@ def exchange_rows(parts: Sequence[torch.Tensor], mesh: Mesh,
             "needs depth <= band rows)")
     wrap = topology is Topology.TORUS
     # my north halo is my north neighbour's bottom strip: data flows +1
-    north = _neighbour_strips(parts, mesh, _sources(mesh, axis, 1, wrap),
-                              lambda t: t[..., h - depth:, :])
-    south = _neighbour_strips(parts, mesh, _sources(mesh, axis, -1, wrap),
-                              lambda t: t[..., :depth, :])
+    north, south = _neighbour_strips(mesh, [
+        (parts, _sources(mesh, axis, 1, wrap),
+         lambda t: t[..., h - depth:, :]),
+        (parts, _sources(mesh, axis, -1, wrap), lambda t: t[..., :depth, :])])
     return [torch.cat([n, t, s], dim=-2)
             for n, t, s in zip(north, parts, south)]
 
@@ -210,10 +277,9 @@ def exchange_cols(ext: Sequence[torch.Tensor], mesh: Mesh,
         raise ValueError(
             f"halo depth {depth} exceeds the tile width {w}")
     wrap = topology is Topology.TORUS
-    west = _neighbour_strips(ext, mesh, _sources(mesh, COL_AXIS, 1, wrap),
-                             lambda t: t[..., w - depth:])
-    east = _neighbour_strips(ext, mesh, _sources(mesh, COL_AXIS, -1, wrap),
-                             lambda t: t[..., :depth])
+    west, east = _neighbour_strips(mesh, [
+        (ext, _sources(mesh, COL_AXIS, 1, wrap), lambda t: t[..., w - depth:]),
+        (ext, _sources(mesh, COL_AXIS, -1, wrap), lambda t: t[..., :depth])])
     return [torch.cat([a, t, b], dim=-1) for a, t, b in zip(west, ext, east)]
 
 

@@ -1,9 +1,12 @@
-"""Sharded stepping over a single-controller mesh: halo exchange, then the
-stencil of every position.
+"""Sharded stepping over a mesh: halo exchange, then the stencil of every
+position.
 
 Counterpart of ``gameoflifewithactors_tpu.parallel.sharded``. The state is
 a :class:`.mesh.ShardedGrid` (one stacked tensor per device); a runner
-takes it and a number of generations and returns the stepped grid.
+takes it and a number of generations and returns the stepped grid. On a
+mesh spanning processes (:func:`.multihost.global_mesh`) every process
+runs the same runner on its own positions, and the exchanges carry the
+strips between processes (:func:`.halo.transfer`).
 
 - Band runners, on full-width row bands over the flattened mesh axis
   (``banded=True``), one chunk of ``g`` generations per exchange: a
@@ -86,6 +89,7 @@ from ..ops.stencil import Topology
 from .halo import (
     _moved,
     _sources,
+    transfer,
     band_edge_code,
     band_edge_codes,
     exchange_cols,
@@ -630,7 +634,8 @@ def make_multi_step_packed_ghost(
 
     Each call adds to ``obs.registry.REGISTRY``: ``halo_exchanges_total``
     (the exchanges), ``halo_bytes_total`` (:func:`ghost_exchange_bytes`
-    per exchange) and the gauge ``halo_overlap_ratio`` (the share of a
+    per exchange, this process's share of it on a mesh spanning
+    processes) and the gauge ``halo_overlap_ratio`` (the share of a
     block's stencil work that is interior, which may overlap the
     exchange).
 
@@ -710,6 +715,9 @@ def make_multi_step_packed_ghost(
         return lambda state: blocks(state, c)
 
     nx, ny = mesh.shape[ROW_AXIS], mesh.shape[COL_AXIS]
+    # this process's share of the fleet's bytes, so that the processes'
+    # counters sum to the model once (the JAX package's local_frac)
+    local_frac = len(mesh.positions) / mesh.size
 
     def run(state: ShardedGrid, chunks: int) -> ShardedGrid:
         c = int(chunks)
@@ -726,7 +734,7 @@ def make_multi_step_packed_ghost(
             "halo_bytes_total",
             "modeled interconnect bytes moved by ghost-zone halo "
             "exchanges").inc(c * ghost_exchange_bytes(shape, mesh, topology,
-                                                      k))
+                                                      k) * local_frac)
         h, w = shape[-2] // nx, shape[-1] // ny
         interior = sum((h - 2 * j) * w for j in range(k))
         boundary = sum(2 * (3 * k - 2 * j) * (w + 2 * hw)
@@ -772,7 +780,9 @@ def _make_flagged_sparse(mesh: Mesh, topology: Topology, rule) -> Callable:
     only the positions whose 3x3 flag neighbourhood is awake step. The
     flags of every position come back to the host in one transfer per
     generation: the skip is a host decision, where JAX's is a
-    ``lax.cond``."""
+    ``lax.cond``. On a mesh spanning processes each process decides for
+    its own positions alone (a position's decision reads only its own
+    exchanged flags), and every position takes part in every exchange."""
     step = _stack_step(rule)
     home = mesh.groups[0][0]
 
@@ -854,7 +864,9 @@ class _Rings:
     state and whose ring :meth:`fill` writes from the neighbours' edges
     (rows first, then the full-height columns, so the corners ride along:
     the two-phase exchange of :func:`.halo.exchange_halo`, without
-    copying the interior). The strips from other positions count in
+    copying the interior). Strips between positions of this process are
+    indexed copies; those from or to another process go through
+    :func:`.halo.transfer`. The strips from other positions count in
     :func:`.halo.exchanged_bytes`."""
 
     def __init__(self, mesh: Mesh, topology: Topology, r: int, rw: int):
@@ -866,17 +878,20 @@ class _Rings:
         self.bufs: List[torch.Tensor] = []
 
     def _plan(self, sources):
-        """Per destination device, ``[(dst slots, src group, src slots,
-        moved positions)]`` for one direction; no entry where a DEAD edge
-        leaves the ring zero."""
+        """For one direction: per destination device, ``[(dst slots, src
+        group, src slots, moved positions)]`` over the sources this
+        process holds (no entry where a DEAD edge leaves the ring zero),
+        and the ``(source, destination)`` pairs of the direction that
+        cross a process boundary."""
+        mesh = self.mesh
         plans = []
-        for device, positions in self.mesh.groups:
+        for device, positions in mesh.groups:
             by_src: dict = {}
             for s, p in enumerate(positions):
                 q = sources[p]
-                if q is None:
+                if q is None or mesh.owner_of[q] != mesh.rank:
                     continue
-                g, t = self.mesh.slot_of[q]
+                g, t = mesh.slot_of[q]
                 d, sl, moved = by_src.setdefault(g, ([], [], [0]))
                 d.append(s)
                 sl.append(t)
@@ -884,10 +899,12 @@ class _Rings:
             plans.append([(torch.tensor(d, dtype=torch.int64, device=device),
                            g,
                            torch.tensor(sl, dtype=torch.int64,
-                                        device=self.mesh.groups[g][0]),
+                                        device=mesh.groups[g][0]),
                            moved[0])
                           for g, (d, sl, moved) in by_src.items()])
-        return plans
+        remote = [(q, p) for p, q in enumerate(sources)
+                  if q is not None and mesh.owner_of[q] != mesh.owner_of[p]]
+        return plans, remote
 
     def adopt(self, parts: Sequence[torch.Tensor]) -> None:
         """New buffers holding ``parts`` inside a zero ring."""
@@ -904,13 +921,30 @@ class _Rings:
         return [b[..., r:b.shape[-2] - r, rw:b.shape[-1] - rw]
                 for b in self.bufs]
 
-    def _copy(self, plans, dst_view, src_view) -> None:
-        for (device, _), buf, plan in zip(self.mesh.groups, self.bufs, plans):
-            for dst, g, src, moved in plan:
-                strip = src_view(self.bufs[g])[src]
-                if moved:
-                    _moved(moved * strip[0].numel() * strip.element_size())
-                dst_view(buf)[dst] = strip.to(device, non_blocking=True)
+    def _copy(self, directions) -> None:
+        """Each ``(plan, dst_view, src_view)`` direction's strips: the
+        indexed copies first, then every crossing strip in one
+        :func:`.halo.transfer`."""
+        mesh = self.mesh
+        moves = []
+        for d, ((plans, remote), dst_view, src_view) in enumerate(directions):
+            for (device, _), buf, plan in zip(mesh.groups, self.bufs, plans):
+                for dst, g, src, moved in plan:
+                    strip = src_view(self.bufs[g])[src]
+                    if moved:
+                        _moved(moved * strip[0].numel() * strip.element_size())
+                    dst_view(buf)[dst] = strip.to(device, non_blocking=True)
+            moves += [(q, p, d) for q, p in remote]
+        if not moves:
+            return
+
+        def take(q, d):
+            g, s = mesh.slot_of[q]
+            return directions[d][2](self.bufs[g])[s]
+
+        for (p, d), strip in transfer(mesh, moves, take).items():
+            g, s = mesh.slot_of[p]
+            directions[d][1](self.bufs[g])[s] = strip
 
     def fill(self) -> None:
         r, rw = self.r, self.rw
@@ -918,13 +952,14 @@ class _Rings:
         h = H - 2 * r
         north, south, west, east = self.plans
         # my north ring is my north neighbour's bottom interior rows
-        self._copy(north, lambda b: b[..., :r, rw:W - rw],
-                   lambda b: b[..., h:h + r, rw:W - rw])
-        self._copy(south, lambda b: b[..., h + r:, rw:W - rw],
-                   lambda b: b[..., r:2 * r, rw:W - rw])
+        self._copy([(north, lambda b: b[..., :r, rw:W - rw],
+                     lambda b: b[..., h:h + r, rw:W - rw]),
+                    (south, lambda b: b[..., h + r:, rw:W - rw],
+                     lambda b: b[..., r:2 * r, rw:W - rw])])
         w = W - 2 * rw
-        self._copy(west, lambda b: b[..., :rw], lambda b: b[..., w:w + rw])
-        self._copy(east, lambda b: b[..., w + rw:], lambda b: b[..., rw:2 * rw])
+        self._copy([(west, lambda b: b[..., :rw], lambda b: b[..., w:w + rw]),
+                    (east, lambda b: b[..., w + rw:],
+                     lambda b: b[..., rw:2 * rw])])
 
 
 def make_multi_step_packed_sparse_tiled(
@@ -957,9 +992,13 @@ def make_multi_step_packed_sparse_tiled(
 
     Each shard lives in a persistent buffer with its halo ring (the
     exchange writes only the ring, no extended copy per generation), and
-    the candidate counts of all shards come back in one host transfer per
-    generation. The runner steps the state it returned last in place, as
-    the JAX engine's donated runner consumes its input.
+    the candidate counts of all this process's shards come back in one
+    host transfer per generation. A shard's choice between its windows
+    and the whole-shard step reads only its own count, so on a mesh
+    spanning processes each process decides for its own shards, with no
+    collective, and every shard takes part in every exchange. The runner
+    steps the state it returned last in place, as the JAX engine's
+    donated runner consumes its input.
 
     Returns ``(grid, act, n) -> (grid, act)``; ``act`` is the placed tile
     map from :func:`initial_tile_activity`. Its ``stats`` dict counts the

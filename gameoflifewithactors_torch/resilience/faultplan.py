@@ -25,8 +25,9 @@ survive:
 - ``kill``, ``process_kill``, ``process_preempt``,
   ``checkpoint_corrupt`` -- launcher kinds: a fleet launcher owns them (a
   process can hardly SIGKILL-and-resume itself); the in-process applier
-  refuses them. The fleet of the JAX package's ``resilience/worker.py``
-  and ``distributed.py`` waits for its port (ROADMAP A14).
+  refuses them: :class:`.distributed.ElasticFleet` fires the
+  ``process_*`` and ``checkpoint_corrupt`` kinds, and a launcher of
+  :mod:`.worker` fires ``kill``.
 
 Faults address workers by index and fire at a generation threshold, so
 the schedule is defined in simulation time, not wall time -- the only

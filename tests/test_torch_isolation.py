@@ -57,7 +57,8 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "obs.cost", "obs.diff", "obs.aggregate", "utils.profiling",
              "utils.provenance", "utils.fault", "analysis.sanitizers",
              "resilience.faultplan", "aot", "aot.cache", "aot.spec",
-             "aot.registry", "aot.warmup"):
+             "aot.registry", "aot.warmup", "resilience.distributed",
+             "resilience.worker"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -71,7 +72,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(" ", 1)
-    assert int(count) >= 62   # every module: rule families, obs, serve, aot, ...
+    assert int(count) >= 64   # every module: rule families, obs, serve, aot, ...
     assert loaded.strip() == "[]"
 
 
