@@ -101,7 +101,14 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    the elastic fleet (two workers, 4096^2, a ``process_kill`` at the
    midpoint, detection and recovery seconds, ``final.npy`` equal to B1);
    the soak worker's packed flavor SIGKILLed and resumed, equal to an
-   unfaulted run.
+   unfaulted run. The analysis phase (``analysis_phase``): under
+   ``GOLTPU_SANITIZE=1`` the transfer guard around B1, B3 and B4 at
+   16384^2, B2's slab form on the 4-band mesh, B2's lane form on the
+   256-session lane and config #5 on the sparse and paged engines, each
+   two chunks and a remainder, no raise, equal to its unguarded run; the
+   negative control raises; the contract gate on the card
+   (``contracts --device cuda --strict``, one line per runner); the lint
+   of the port tree; B1's ms per generation with the guard and without.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -2616,6 +2623,250 @@ def multiprocess_phase(cs, card: str, dev, work: str) -> dict:
     return out
 
 
+ANALYSIS_TIMED_GENERATIONS = 2000   # B1's ms per generation, guard on and off
+
+
+def analysis_phase(cs, card: str, dev, repo: str) -> dict:
+    """The analysis phase (ROADMAP A17), on states of its own:
+
+    (a) the transfer guard (``GOLTPU_SANITIZE=1``, set in this process) at
+        full width: B1 (16384^2 B3/S23 TORUS, ``auto``), B3 (brain), B4
+        (Bosco), B2's slab form (the 4-band mesh), B2's lane form (the
+        256-session lane), the sparse engine on config #5 and the paged
+        engine each step two chunks and a remainder under the guard, equal
+        bit for bit to the same run unguarded, launching their kernel
+        ceil(n/g) times; ``snapshot``, ``population`` and ``active_tiles``
+        run inside a guard; the negative control (``int(t.sum())`` of a
+        card tensor inside the guard) raises; what else trips the guard on
+        this card is printed (probes); B1's ms per generation with the
+        guard and without, in turns;
+    (b) the contract gate on the card, ``contracts --device cuda
+        --strict``, in a subprocess of its own (one line per runner);
+    (c) the lint of the port tree, exit 0."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.analysis import contracts, lint, sanitizers
+    from gameoflifewithactors_torch.memory.paged import default_chunk_gens
+    from gameoflifewithactors_torch.models import seeds
+    from gameoflifewithactors_torch.models.generations import parse_any
+    from gameoflifewithactors_torch.models.rules import CONWAY
+    from gameoflifewithactors_torch.ops import bitpack, sparse
+    from gameoflifewithactors_torch.ops.stencil import Topology
+    from gameoflifewithactors_torch.parallel.batched import \
+        multi_step_kernel_batched
+    from gameoflifewithactors_torch.parallel.mesh import make_mesh
+    from gameoflifewithactors_torch.utils.interop import host_to_device
+
+    t_phase = time.perf_counter()
+    before = os.environ.get(sanitizers.ENV_SANITIZE)
+    out = {}
+    try:
+        os.environ[sanitizers.ENV_SANITIZE] = "1"
+        # -- (a) the negative control, then what else trips the guard ------
+        t = torch.ones(1024, device=dev)
+        raised = False
+        with sanitizers.no_implicit_host_transfers(dev):
+            try:
+                # goltpu: ignore[GOL001] -- the negative control: this sync must raise
+                int(t.sum())
+            except RuntimeError:
+                raised = True
+        check(raised, "int(t.sum()) of a card tensor inside the guard did "
+                      "not raise: the guard has no teeth")
+        check(sanitizers.guard_depth() == 0 and
+              torch.cuda.get_sync_debug_mode() == 0,
+              "the guard did not restore the sync debug mode")
+        event = torch.cuda.Event()
+        event.record()
+        host = torch.ones(1 << 16, dtype=torch.int32)
+        probes = {
+            "torch.cuda.synchronize()": torch.cuda.synchronize,
+            "Event.synchronize()": event.synchronize,
+            "Stream.synchronize()": torch.cuda.current_stream().synchronize,
+            "pageable .to(cuda) (blocking)": lambda: host.to(dev),
+            "pageable .to(cuda, non_blocking=True) (halo's return trip)":
+                lambda: host.to(dev, non_blocking=True),
+            "torch.tensor(list, device=cuda)":
+                lambda: torch.tensor([1, 2, 3], device=dev),
+            "interop.host_to_device (pinned, async)":
+                lambda: host_to_device(host, dev),
+        }
+        found = {}
+        for name, fn in probes.items():
+            with sanitizers.no_implicit_host_transfers(dev):
+                try:
+                    fn()
+                    found[name] = "passes"
+                except RuntimeError:
+                    found[name] = "raises"
+        torch.cuda.synchronize()
+        print("analysis (a) guard probes on the card: int(t.sum()) raises "
+              "(the negative control); " + "; ".join(
+                  f"{k} {v}" for k, v in found.items()))
+        check(found["interop.host_to_device (pinned, async)"] == "passes",
+              "the pinned asynchronous copy trips the guard")
+        out["probes"] = found
+
+        # -- (a) each path twice from one start, under the guard and not ----
+        def held(label, make, n, kernel=None, per_chunk=None, chunk=None):
+            states = {}
+            for guarded in (True, False):
+                os.environ[sanitizers.ENV_SANITIZE] = "1" if guarded else "0"
+                engine = make()
+                reset_launches(cs)
+                engine.step(n)
+                engine.block_until_ready()
+                counts = launches(cs)
+                if guarded:
+                    with sanitizers.no_implicit_host_transfers(dev):
+                        engine.snapshot(max_shape=(40, 80))
+                        pop = engine.population()
+                        tiles = engine.active_tiles()
+                    if kernel is not None:
+                        want = per_chunk * math.ceil(n / chunk)
+                        check(counts[kernel] == want and all(
+                            v == 0 for k, v in counts.items() if k != kernel),
+                            f"{label} under the guard launched {counts}, "
+                            f"expected {want} of {kernel}")
+                states[guarded] = engine.state.clone()
+                del engine
+            check(torch.equal(states[True], states[False]),
+                  f"{label}: the guarded run differs from the unguarded one")
+            print(f"analysis (a) {label}: {n} generations under the guard, "
+                  "no raise, == the unguarded run (torch.equal); snapshot, "
+                  f"population {pop}, active tiles {tiles} inside a guard"
+                  + (f"; {per_chunk * math.ceil(n / chunk)} {kernel} launches"
+                     if kernel else ""))
+            del states
+            torch.cuda.empty_cache()
+
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(14)
+        soup = seeds.bernoulli(rng, MAIN_SHAPE, 0.5)
+        brain, bosco = parse_any("brain"), parse_any("bosco")
+        u = torch.rand(MAIN_SHAPE, generator=rng, device=dev)
+        brain_cells = (u * brain.states).to(torch.uint8)
+        del u
+        for label, spec, cells, kernel, g in [
+                ("B1 16384^2 B3/S23 TORUS (auto)", "B3/S23", soup,
+                 "life_packed", cs.DEFAULT_GENS_PER_CALL),
+                ("B3 16384^2 brain", brain, brain_cells, "life_generations",
+                 cs.DEFAULT_GENERATIONS_GENS_PER_CALL),
+                ("B4 16384^2 Bosco", bosco, soup, "life_ltl",
+                 cs.DEFAULT_LTL_GENS_PER_CALL)]:
+            held(label, lambda: Engine(cells, spec, device="cuda"),
+                 2 * g + 3, kernel, 1, g)
+        mesh = make_mesh((MESH_BANDS, 1), [dev] * MESH_BANDS)
+        g = cs.DEFAULT_BAND_GENS_PER_CALL
+        held("B2 slab form, 16384^2 B3/S23 on the 4-band mesh",
+             lambda: Engine(soup, "B3/S23", device="cuda", mesh=mesh),
+             2 * g + 3, "life_slab", 1, g)
+        del brain_cells, soup
+        # the serving lane is stepped by its runner, not an Engine
+        lane = torch.stack([bitpack.pack(seeds.bernoulli(rng, LANE_SHAPE, 0.35))
+                            for _ in range(LANE_SESSIONS)])
+        mask = np.ones(LANE_SESSIONS, np.uint32)
+        mask[::7] = 0
+        n = 2 * g + 3
+        lanes = {}
+        for guarded in (True, False):
+            os.environ[sanitizers.ENV_SANITIZE] = "1" if guarded else "0"
+            reset_launches(cs)
+            with sanitizers.no_implicit_host_transfers(dev):
+                lanes[guarded] = multi_step_kernel_batched(lane, n, mask,
+                                                           rule=CONWAY)
+            torch.cuda.synchronize()
+            check(launches(cs)["life_slab"] == math.ceil(n / g),
+                  f"the lane launched {launches(cs)}")
+        check(torch.equal(lanes[True], lanes[False]),
+              "the lane: the guarded run differs from the unguarded one")
+        print(f"analysis (a) B2 lane form, {LANE_SESSIONS} x "
+              f"{LANE_SHAPE[0]}^2 sessions (every 7th frozen): {n} generations "
+              f"under the guard, no raise, == the unguarded run; "
+              f"{math.ceil(n / g)} life_slab launches")
+        del lane, lanes
+        side = CONFIG5_SIDE
+        words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
+                                    left_word=side // bitpack.WORD // 2)
+        paged_chunk = default_chunk_gens(CONWAY, sparse.DEFAULT_TILE_ROWS,
+                                         sparse.DEFAULT_TILE_WORDS)
+        for backend, opts, chunk in (
+                ("sparse", {"chunk_gens": 4}, 4),
+                ("paged", {"capacity": CONFIG5_PAGED_CAPACITY}, paged_chunk)):
+            held(f"config #5 on the {backend} engine (chunks of {chunk})",
+                 lambda: Engine.from_packed(words, "B3/S23",
+                                            topology=Topology.TORUS,
+                                            backend=backend, device="cuda",
+                                            sparse_opts=opts),
+                 2 * chunk + 1)
+        del words
+        torch.cuda.empty_cache()
+    finally:
+        if before is None:
+            os.environ.pop(sanitizers.ENV_SANITIZE, None)
+        else:
+            os.environ[sanitizers.ENV_SANITIZE] = before
+
+    # -- (b) the gate, in a process of its own, after (a) ---------------------
+    env = {k: v for k, v in os.environ.items() if k != sanitizers.ENV_SANITIZE}
+    gate = subprocess.run(
+        [sys.executable, "-m", "gameoflifewithactors_torch.analysis.contracts",
+         "--device", "cuda", "--strict"], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=600)
+    lines = gate.stdout.strip().splitlines()
+    for line in lines:
+        print(f"analysis (b) contracts --device cuda --strict: {line}")
+    check(gate.returncode == 0,
+          f"contracts --device cuda --strict exited {gate.returncode}; "
+          "its lines other than ok: " + " | ".join(
+              line for line in lines if not line.startswith("ok "))
+          + f"; its standard error: {gate.stderr[-2000:]}")
+    runners = len(contracts.load_registry())
+    held_lines = sum(line.startswith(("ok ", "skipped (stale) "))
+                     for line in lines)
+    check(held_lines == len(lines) == runners,
+          f"the gate on the card printed {len(lines)} lines for {runners} "
+          f"runners, {held_lines} of them ok or stale")
+    out["gate"] = lines
+
+    # -- (c) the lint of the port tree ----------------------------------------
+    rc = lint.main([])
+    check(rc == 0, f"the lint of the port tree exited {rc}")
+    print("analysis (c) python -m gameoflifewithactors_torch.analysis.lint: "
+          "exit 0 (the package, chip_smoke.py, tests/test_torch_*.py)")
+
+    # -- (a) B1's ms per generation, guard off and on, in turns ---------------
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(15)
+    cells = seeds.bernoulli(rng, MAIN_SHAPE, 0.5)
+    n = ANALYSIS_TIMED_GENERATIONS
+    times = {True: [], False: []}
+    try:
+        for guarded in (False, True, True, False):
+            os.environ[sanitizers.ENV_SANITIZE] = "1" if guarded else "0"
+            engine = Engine(cells, "B3/S23", device="cuda")
+            engine.step(cs.DEFAULT_GENS_PER_CALL)     # warm
+            engine.block_until_ready()
+            t0 = time.perf_counter()
+            engine.step(n)
+            engine.block_until_ready()
+            times[guarded].append((time.perf_counter() - t0) * 1e3 / n)
+            del engine
+    finally:
+        if before is None:
+            os.environ.pop(sanitizers.ENV_SANITIZE, None)
+        else:
+            os.environ[sanitizers.ENV_SANITIZE] = before
+    out["b1_ms_per_gen"] = times
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"analysis (a) B1 16384^2 B3/S23, {n} generations per run, host "
+          "clock incl. sync, in turns (off, on, on, off): without the guard "
+          + ", ".join(f"{t:.6f}" for t in times[False]) + " ms/gen; with it "
+          + ", ".join(f"{t:.6f}" for t in times[True]) + f" ms/gen  [{card}]")
+    print(f"analysis phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2997,6 +3248,8 @@ def main() -> int:
     multiprocess_phase(cs, card, dev, mp_work)
     shutil.rmtree(mp_work)
     stamp("the multi-process run")
+    analysis_phase(cs, card, dev, repo)
+    stamp("the analysis phase")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)

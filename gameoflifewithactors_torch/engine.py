@@ -668,10 +668,14 @@ class Engine:
             raise ValueError(f"cannot step a negative number of generations: {n}")
         if n == 0:
             return
+        # sanitizer (GOLTPU_SANITIZE=1): on the card every host sync of
+        # the dispatch raises unless declared (the sparse and paged
+        # engines declare their per-chunk reads inside)
         with obs_spans.span("engine.step", generations=n,
                             backend=self.backend), \
                 obs_profiler.dispatch_annotation(
-                    f"goltpu.dispatch[{self.backend}]"):
+                    f"goltpu.dispatch[{self.backend}]"), \
+                sanitizers.no_implicit_host_transfers(self.device):
             if self._sparse is not None:
                 self._sparse.step(n)
             else:
@@ -717,7 +721,10 @@ class Engine:
         downsampled *on device* to fit within ``max_shape`` before the
         transfer, so rendering a 16384² universe to a console ships a few
         KB."""
-        with obs_spans.span("engine.snapshot"):
+        with obs_spans.span("engine.snapshot"), \
+                sanitizers.allow_host_transfers(
+                    "snapshot IS the designated host readback (renderers, "
+                    "checkpoints, reports fetch here, not in the loop)"):
             state = self.state
             if self._layout == "planes":
                 dense = unpack_generations(state)
@@ -735,9 +742,13 @@ class Engine:
         multi-state rules only state 1 is alive: dying states occupy space
         but are not population. With a mesh, each position's block is
         counted on its own device."""
-        if self.mesh is None:
-            return self._population(self.state)
-        return sum(self._population(block) for block in self._state.blocks())
+        with sanitizers.allow_host_transfers(
+                "population is an explicit scalar readback (device-side "
+                "count, one host total)"):
+            if self.mesh is None:
+                return self._population(self.state)
+            return sum(self._population(block)
+                       for block in self._state.blocks())
 
     def _population(self, state: torch.Tensor) -> int:
         if self._layout == "planes":
@@ -750,11 +761,13 @@ class Engine:
         """The "sparse" backend's changed tiles (its activity map's count;
         with a mesh, the count over every shard's map) or the pages the
         "paged" backend holds; None for the other backends."""
-        if self._flags is not None:
-            return sum(int(p.sum()) for p in self._flags.parts)
-        if self._sparse is None:
-            return None
-        return self._sparse.active_tiles()
+        with sanitizers.allow_host_transfers(
+                "active-tile count is an explicit observability readback"):
+            if self._flags is not None:
+                return sum(int(p.sum()) for p in self._flags.parts)
+            if self._sparse is None:
+                return None
+            return self._sparse.active_tiles()
 
     def runner_cost_analysis(self, gens: int = 8) -> Optional[dict]:
         """The work one ``gens``-generation dispatch of this engine's rule

@@ -30,6 +30,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from ..analysis import sanitizers
 from ..obs.registry import REGISTRY, MetricsRegistry
 from ..ops import bitpack
 from ..ops import sparse as _sparse
@@ -175,7 +176,11 @@ class PagedGrid:
             words = state_from_numpy(words)
         # (nty, ntx, planes, tr, tw) view: one tile per (ty, tx)
         tiles = words.reshape(pool.planes, nty, tr, ntx, tw).permute(1, 3, 0, 2, 4)
-        live = torch.nonzero((tiles != 0).flatten(2).any(-1)).cpu().tolist()
+        with sanitizers.allow_host_transfers(
+                "seeding reads which tiles hold a live bit: only those "
+                "bind pages"):
+            live = torch.nonzero(
+                (tiles != 0).flatten(2).any(-1)).cpu().tolist()
         placed = [(origin[0] + ty, origin[1] + tx) for ty, tx in live]
         self.ensure(placed)
         if live:

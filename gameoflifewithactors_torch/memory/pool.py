@@ -33,14 +33,38 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import sanitizers
 from ..engine import resolve_device
 from ..obs.registry import REGISTRY, MetricsRegistry
 from ..ops import bitpack
 from ..ops import sparse as _sparse
+from ..ops._builders import BuiltRunner, register_builder, steps_in_place
 from ..parallel.batched import make_multi_step_paged
 from ..utils.interop import state_from_numpy
 
 DEAD_SLOT = 0
+
+
+# -- slot surgery ---------------------------------------------------------------
+#
+# In place on the pool's own slab (the counterpart of the JAX package's
+# donated programs): the pool rebinds nothing, and no caller holds the
+# slab.
+
+
+@steps_in_place
+def _write_slot(tiles: torch.Tensor, slot,
+                content: torch.Tensor) -> torch.Tensor:
+    """``content`` into ``slot``: one slot and its (planes, tile_rows,
+    tile_words) words, or an index tensor of k slots and their (k, ...)."""
+    tiles[slot] = content.to(tiles.device, tiles.dtype)
+    return tiles
+
+
+@steps_in_place
+def _zero_slot(tiles: torch.Tensor, slot: int) -> torch.Tensor:
+    tiles[slot] = 0
+    return tiles
 
 
 class PoolExhausted(RuntimeError):
@@ -158,7 +182,7 @@ class TilePool:
         *incoming* edges."""
         if slot == DEAD_SLOT:
             raise ValueError("the dead slot is not allocatable or freeable")
-        self.tiles[slot] = 0
+        _zero_slot(self.tiles, slot)
         self.neighbors[slot] = DEAD_SLOT
         self._free.append(slot)
         self._reclaim_c.inc(pool=self.name)
@@ -182,12 +206,15 @@ class TilePool:
                 len(slots), self.planes, self.tile_rows, self.tile_words)
         index = torch.as_tensor(list(slots), dtype=torch.int64,
                                 device=self.device)
-        self.tiles[index] = contents.to(self.device)
+        _write_slot(self.tiles, index, contents)
 
     def tiles_host(self) -> np.ndarray:
         """The whole slab on the host as uint32: checkpoint and readback
         granularity; the step path never calls this."""
-        return self.tiles.cpu().numpy().copy().view(np.uint32)
+        with sanitizers.allow_host_transfers(
+                "pool slab readback: checkpoint/snapshot reconstruction "
+                "is host-side by design"):
+            return self.tiles.cpu().numpy().copy().view(np.uint32)
 
     # -- stepping -------------------------------------------------------------
 
@@ -198,9 +225,10 @@ class TilePool:
         evidence (one readback of both)."""
         self.tiles, changed, occupied = self._runner(
             self.tiles, int(n), self.neighbors, mask)
-        # the JAX package declares this readback to its host-transfer
-        # sanitizer; the port's counterpart waits for ROADMAP A17
-        flags = torch.stack([changed, occupied]).cpu().numpy()
+        with sanitizers.allow_host_transfers(
+                "paged pool reads per-slot changed/occupied flags between "
+                "chunks: page activation/retirement is host bookkeeping"):
+            flags = torch.stack([changed, occupied]).cpu().numpy()
         self.dispatches += 1
         self.syncs += 1
         return flags[0], flags[1]
@@ -210,3 +238,28 @@ class TilePool:
         to compile (the runner is plain torch), so allocation churn after
         ``warm`` is host bookkeeping, as in the JAX package."""
         self.dispatch(1, np.zeros((self.capacity,), np.uint32))
+
+
+# -- contract-gate registrations (ops/_builders.py BUILDERS) -------------------
+
+
+def _contract_pool_slab(device, B=16, planes=1, tr=32, tw=4, seed=3):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, 1 << 32, size=(B, planes, tr, tw), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(device)
+
+
+@register_builder("memory.pool_write_slot", tags=("memory", "paged"))
+def _contract_pool_write_slot(device):
+    tiles = _contract_pool_slab(device)
+    content = torch.ones(tiles.shape[1:], dtype=torch.int32, device=device)
+    # the measured call writes the next slot (the first one wrote slot 3)
+    return BuiltRunner(_write_slot, (tiles, 3, content),
+                       chain=lambda out, a: (out, a[1] + 1, a[2]))
+
+
+@register_builder("memory.pool_zero_slot", tags=("memory", "paged"))
+def _contract_pool_zero_slot(device):
+    return BuiltRunner(_zero_slot, (_contract_pool_slab(device), 3),
+                       chain=lambda out, a: (out, a[1] + 1))

@@ -114,6 +114,7 @@ class DeviceSampler:
         try:
             stats = self._backend()
         except Exception as exc:  # noqa: BLE001 — telemetry must not kill serving
+            # goltpu: ignore[GOL010] -- series name frozen pre-_total convention: committed history.jsonl/RunReports key on it
             self.registry.counter(
                 "device_sample_errors",
                 "device memory polls that raised").inc(
@@ -129,6 +130,7 @@ class DeviceSampler:
                     self.registry.gauge(gname, ghelp).set(
                         float(rec[key]), **labels)
         self.samples += 1
+        # goltpu: ignore[GOL010] -- series name frozen pre-_total convention: committed history.jsonl/RunReports key on it
         self.registry.counter(
             "device_samples", "device memory polls completed").inc()
         return stats

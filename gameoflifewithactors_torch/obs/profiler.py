@@ -195,6 +195,7 @@ class ProfileSampler:
             self._opened.set()   # a failed window must not hold a waiter
             with self._lock:
                 self._errors += 1
+            # goltpu: ignore[GOL010] -- series name frozen pre-_total convention: committed history.jsonl/RunReports key on it
             self.registry.counter(
                 "profile_capture_errors",
                 "profiler capture windows that raised").inc(

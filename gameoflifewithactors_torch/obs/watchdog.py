@@ -152,6 +152,7 @@ class StallWatchdog:
             open_spans=tuple(stack), t=now)
         with self._lock:
             self.events.append(ev)
+        # goltpu: ignore[GOL010] -- series name frozen pre-_total convention: committed history.jsonl/RunReports key on it
         REGISTRY.counter("stalls", "ticks that overran the watchdog deadline"
                          ).inc(label=label)
         for sink in sinks:

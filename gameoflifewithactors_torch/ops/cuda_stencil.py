@@ -59,6 +59,8 @@ from ..models.generations import GenRule
 from ..models.ltl import LtLRule
 from ..models.rules import Rule
 from ..parallel.halo import exchange_rows_stack
+from ..utils.interop import host_to_device
+from ._builders import BuiltRunner, register_builder
 from .packed import step_packed_slab
 from .packed_generations import n_planes, step_planes_slab
 from .packed_ltl import step_ltl_packed_slab
@@ -700,7 +702,10 @@ def _lane_mask(mask, grids: torch.Tensor) -> Optional[torch.Tensor]:
     if (mask.dtype == torch.int32 and mask.device == grids.device
             and mask.is_contiguous()):
         return mask
-    return (mask != 0).to(device=grids.device, dtype=torch.int32)
+    live = (mask != 0).to(torch.int32)
+    if live.device.type == "cpu":
+        return host_to_device(live, grids.device)
+    return live.to(grids.device)
 
 
 def _check_lane(grids: torch.Tensor, gens: Optional[int]) -> int:
@@ -1291,3 +1296,125 @@ def slab_step_ltl_kernel(
     lib = _library("life_ltl")
     return _run_once(ext, lambda src, dst: _launch_ltl_slab(
         lib, src, dst, g, rule, topology, edge_code, th, tw))
+
+
+# -- contract-gate registrations (ops/_builders.py BUILDERS) -------------------
+#
+# The kernel runners the engine's ``auto`` picks on the card, each on a
+# small example: one call of ``n`` generations launches ceil(n/g) of its
+# own kernel and no other kernel. Tagged ``cuda``: the gate holds them on
+# the card only (on the CPU they read "needs CUDA").
+
+_CONTRACT_SHAPE = (256, 1024)
+
+
+def _contract_words(device, shape=_CONTRACT_SHAPE, seed=7) -> torch.Tensor:
+    from . import bitpack
+    from .packed import _contract_soup
+
+    return bitpack.pack(_contract_soup(device, shape, seed))
+
+
+def _contract_planes(device, rule) -> torch.Tensor:
+    from .packed_generations import pack_generations_for
+
+    rng = np.random.default_rng(7)
+    cells = rng.integers(0, rule.states, size=_CONTRACT_SHAPE, dtype=np.uint8)
+    return pack_generations_for(torch.from_numpy(cells).to(device), rule)
+
+
+def _slab_batch(t: torch.Tensor, bands: int, depth: int) -> torch.Tensor:
+    """``bands`` halo-extended row bands of ``t`` (TORUS wrap), stacked."""
+    rows = t.shape[-2] // bands
+    return torch.stack([
+        torch.roll(t, depth - b * rows, dims=-2)[..., :rows + 2 * depth, :]
+        for b in range(bands)]).contiguous()
+
+
+def _contract_kernel_runner(device, step, state, g: int, counter: str,
+                            n: Optional[int] = None) -> BuiltRunner:
+    n = 2 * g + 3 if n is None else n    # two full launches and a shorter
+    return BuiltRunner(lambda s: step(s, n), (state,), kernel=counter,
+                       launches=-(-n // g))
+
+
+@register_builder("cuda.multi_step_kernel", tags=("cuda", "packed"))
+def _contract_b1(device):
+    from ..models.rules import CONWAY
+
+    return _contract_kernel_runner(
+        device, lambda p, n: multi_step_kernel(p, n, rule=CONWAY),
+        _contract_words(device), DEFAULT_GENS_PER_CALL, "KERNEL_LAUNCHES")
+
+
+@register_builder("cuda.multi_step_lane_kernel",
+                  tags=("cuda", "packed", "serving"))
+def _contract_b2_lane(device):
+    from ..models.rules import CONWAY
+
+    lane = torch.stack([_contract_words(device, (128, 1024), seed)
+                        for seed in range(8)])
+    mask = np.ones((8,), np.uint32)
+    mask[3] = 0
+    return _contract_kernel_runner(
+        device, lambda grids, n: multi_step_lane_kernel(grids, n, mask,
+                                                        rule=CONWAY),
+        lane, DEFAULT_BAND_GENS_PER_CALL, "SLAB_LAUNCHES")
+
+
+@register_builder("cuda.slab_step_kernel", tags=("cuda", "packed", "mesh"))
+def _contract_b2_slab(device):
+    from ..models.rules import CONWAY
+
+    g = DEFAULT_BAND_GENS_PER_CALL
+    return _contract_kernel_runner(
+        device, lambda ext, n: slab_step_kernel(ext, n, rule=CONWAY),
+        _slab_batch(_contract_words(device), 4, g), g, "SLAB_LAUNCHES", n=g)
+
+
+@register_builder("cuda.multi_step_generations_kernel",
+                  tags=("cuda", "generations"))
+def _contract_b3(device):
+    from ..models.generations import parse_any
+
+    brain = parse_any("brain")
+    return _contract_kernel_runner(
+        device, lambda p, n: multi_step_generations_kernel(p, n, rule=brain),
+        _contract_planes(device, brain), DEFAULT_GENERATIONS_GENS_PER_CALL,
+        "GENERATIONS_LAUNCHES")
+
+
+@register_builder("cuda.slab_step_generations_kernel",
+                  tags=("cuda", "generations", "mesh"))
+def _contract_b3_slab(device):
+    from ..models.generations import parse_any
+
+    brain = parse_any("brain")
+    g = DEFAULT_GENERATIONS_GENS_PER_CALL
+    return _contract_kernel_runner(
+        device, lambda ext, n: slab_step_generations_kernel(ext, n,
+                                                            rule=brain),
+        _slab_batch(_contract_planes(device, brain), 4, g), g,
+        "GENERATIONS_SLAB_LAUNCHES", n=g)
+
+
+@register_builder("cuda.multi_step_ltl_kernel", tags=("cuda", "ltl"))
+def _contract_b4(device):
+    from ..models.generations import parse_any
+
+    bosco = parse_any("bosco")
+    return _contract_kernel_runner(
+        device, lambda p, n: multi_step_ltl_kernel(p, n, rule=bosco),
+        _contract_words(device), DEFAULT_LTL_GENS_PER_CALL, "LTL_LAUNCHES")
+
+
+@register_builder("cuda.slab_step_ltl_kernel", tags=("cuda", "ltl", "mesh"))
+def _contract_b4_slab(device):
+    from ..models.generations import parse_any
+
+    bosco = parse_any("bosco")
+    g = DEFAULT_LTL_GENS_PER_CALL
+    return _contract_kernel_runner(
+        device, lambda ext, n: slab_step_ltl_kernel(ext, n, rule=bosco),
+        _slab_batch(_contract_words(device), 4, bosco.radius * g), g,
+        "LTL_SLAB_LAUNCHES", n=g)

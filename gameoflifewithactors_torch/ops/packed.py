@@ -25,6 +25,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..models.rules import Rule
+from ._builders import BuiltRunner, register_builder
 from .stencil import Topology
 
 _TOP_BIT = 31  # bit index holding the highest column of a word
@@ -258,3 +259,26 @@ def step_packed_ext(ext: torch.Tensor, rule: Rule) -> torch.Tensor:
     (..., h, wp) interior."""
     alive, bits = count_bits_ext(ext)
     return apply_rule_planes(alive, bits, rule)
+
+
+# -- contract-gate registration (ops/_builders.py BUILDERS) -------------------
+
+
+def _contract_soup(device, shape=(64, 128), seed=7) -> torch.Tensor:
+    """The JAX package's example grid: a seeded numpy soup of 0/1 cells."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, 2, size=shape, dtype=np.uint8)).to(device)
+
+
+@register_builder("ops.multi_step_packed", tags=("ops", "packed"))
+def _contract_ops_multi_step_packed(device):
+    from ..models.rules import CONWAY
+    from . import bitpack
+
+    return BuiltRunner(
+        runner=lambda p, n: multi_step_packed(p, n, rule=CONWAY),
+        example_args=(bitpack.pack(_contract_soup(device)), 3),
+        expected_halo_bytes=0, halo_model="single device: no exchange")

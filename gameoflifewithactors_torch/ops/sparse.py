@@ -39,9 +39,11 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import sanitizers
 from ..models.generations import GenRule
 from ..models.ltl import LtLRule
 from . import bitpack
+from ._builders import steps_in_place
 from .packed import step_packed_ext, step_packed_slab
 from .packed_generations import n_planes, step_planes_ext, step_planes_slab
 from .packed_ltl import (
@@ -332,10 +334,14 @@ def _build_sparse_step(
         active[idx] = changed
         return active.view(nty, ntx)
 
+    @steps_in_place
     def sparse_many(padded, active, n):
         for i in range(int(n)):
             cand = _dilate(active, wrap, dy=dy, dx=dx)
-            idx = torch.nonzero(cand.flatten()).squeeze(1)   # the host sync
+            with sanitizers.allow_host_transfers(
+                    "the sparse step reads its candidate tiles back once "
+                    "per chunk: the window count sizes the gather"):
+                idx = torch.nonzero(cand.flatten()).squeeze(1)
             if idx.numel() > capacity:
                 return padded, active, i, i + 1
             active = sparse_gen(padded, idx)
@@ -362,6 +368,7 @@ def _build_dense_once(
     r, rw = _rule_halo(rule)
     ring = ring_rows or r
 
+    @steps_in_place
     def dense_once(padded):
         if wrap:
             _refresh_ring(padded, ring, rw)
@@ -462,7 +469,10 @@ class SparseEngineState:
             # tiles exist
             dy, dx = _wake_dilation(rule, tile_rows, tile_words, chunk_gens)
             factor = (2 * dy + 1) * (2 * dx + 1)
-            want = max(32, factor * int(self.active.sum()))
+            with sanitizers.allow_host_transfers(
+                    "the adaptive capacity starts from the seeded tile "
+                    "count, read once at construction"):
+                want = max(32, factor * int(self.active.sum()))
             capacity = min(1 << (want - 1).bit_length(), self._cap_ceiling)
         self._set_capacity(capacity)
 
@@ -515,9 +525,12 @@ class SparseEngineState:
                 dy, dx = _wake_dilation(self.rule, self.tile_rows,
                                         self.tile_words,
                                         g if remaining >= g else 1)
-                need = int(_dilate(self.active,
-                                   self.topology is Topology.TORUS,
-                                   dy=dy, dx=dx).sum())
+                with sanitizers.allow_host_transfers(
+                        "an overflow reads the candidate count once to "
+                        "size the escalated capacity"):
+                    need = int(_dilate(self.active,
+                                       self.topology is Topology.TORUS,
+                                       dy=dy, dx=dx).sum())
                 self.syncs += 1
                 want = max(2 * self.capacity, need)
                 self._set_capacity(

@@ -18,6 +18,7 @@ import enum
 import torch
 
 from ..models.rules import Rule
+from ._builders import BuiltRunner, register_builder
 
 
 class Topology(enum.Enum):
@@ -73,3 +74,17 @@ def multi_step(
     for _ in range(int(n)):
         state = step(state, rule=rule, topology=topology)
     return state
+
+
+# -- contract-gate registration (ops/_builders.py BUILDERS) -------------------
+
+
+@register_builder("ops.multi_step", tags=("ops", "dense"))
+def _contract_ops_multi_step(device):
+    from ..models.rules import CONWAY
+    from .packed import _contract_soup
+
+    return BuiltRunner(
+        runner=lambda s, n: multi_step(s, n, rule=CONWAY),
+        example_args=(_contract_soup(device), 3),
+        expected_halo_bytes=0, halo_model="single device: no exchange")

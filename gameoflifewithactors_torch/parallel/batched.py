@@ -49,8 +49,10 @@ import torch
 
 from ..models.rules import Rule
 from ..ops import cuda_stencil
+from ..ops._builders import BuiltRunner, register_builder, steps_in_place
 from ..ops.packed import step_packed_ext
 from ..ops.stencil import Topology
+from ..utils.interop import host_to_device
 from .halo import band_edge_codes, exchange_halo, exchange_halo_stack, exchange_rows
 from .mesh import (
     BATCH_AXIS,
@@ -209,15 +211,16 @@ def make_multi_step_paged(rule, tile_rows: Optional[int] = None,
             return ext_step(w[:, 0])[:, None]
         return ext_step(w.transpose(0, 1)).transpose(0, 1)
 
+    @steps_in_place
     def run(tiles: torch.Tensor, n: int, neighbors, mask):
         dev = tiles.device
         sel = np.flatnonzero(_host(mask))
         changed = torch.zeros(tiles.shape[0], dtype=torch.bool, device=dev)
         if len(sel) and int(n) > 0:
             nb = _host(neighbors)[sel]
-            nb9 = torch.from_numpy(np.concatenate(
+            nb9 = host_to_device(torch.from_numpy(np.concatenate(
                 [nb[:, :4], sel[:, None], nb[:, 4:]], axis=1).astype(np.int64)
-            ).to(dev)
+            ), dev)
             idx = nb9[:, 4]
             ch = torch.zeros(len(sel), dtype=torch.bool, device=dev)
             for _ in range(int(n)):
@@ -431,3 +434,66 @@ def make_multi_step_kernel_batched_mesh(
     if masked:
         return lambda state, chunks, mask: run(state, chunks, mask)
     return lambda state, chunks: run(state, chunks)
+
+
+# -- contract-gate registrations (ops/_builders.py BUILDERS) -------------------
+
+
+def _contract_batch_example(device, mesh_shape=(2, 2, 2), grid=(64, 128),
+                            seed=7):
+    """The JAX package's example: a seeded soup per universe on a (2, 2,
+    2) batch mesh of one device."""
+    from ..ops import bitpack
+
+    nb, nx, ny = mesh_shape
+    m = make_batch_mesh(mesh_shape, [device] * (nb * nx * ny))
+    rng = np.random.default_rng(seed)
+    soup = rng.integers(0, 2, size=(nb,) + grid, dtype=np.uint8)
+    packed = torch.stack([bitpack.pack(torch.from_numpy(u)) for u in soup])
+    return m, device_put(packed.to(device), batch_sharding(m))
+
+
+@register_builder("batched.multi_step_packed_batched",
+                  tags=("batched", "packed"))
+def _contract_multi_step_packed_batched(device):
+    from ..models.rules import CONWAY
+
+    m, grids = _contract_batch_example(device)
+    return BuiltRunner(
+        make_multi_step_packed_batched_mesh(m, CONWAY, Topology.TORUS),
+        (grids, 8))
+
+
+@register_builder("batched.multi_step_packed_batched_masked",
+                  tags=("batched", "packed", "serving"))
+def _contract_multi_step_packed_batched_masked(device):
+    from ..models.rules import CONWAY
+
+    m, grids = _contract_batch_example(device)
+    mask = np.ones((_batch_of(grids),), np.uint32)
+    return BuiltRunner(
+        make_multi_step_packed_batched_mesh(m, CONWAY, Topology.TORUS,
+                                            masked=True),
+        (grids, 8, mask))
+
+
+@register_builder("batched.multi_step_paged",
+                  tags=("batched", "paged", "serving"))
+def _contract_multi_step_paged(device):
+    from ..models.rules import CONWAY
+
+    # a 64-slot pool of Conway tiles with a scrambled page table: the
+    # contract is about the runner's shape (the slab stepped in place,
+    # halos gathered through the table, no host reads), not a universe
+    B, tr, tw = 64, 32, 4
+    rng = np.random.default_rng(11)
+    tiles = torch.from_numpy(
+        rng.integers(0, 1 << 32, size=(B, 1, tr, tw), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(device)
+    nbr = rng.integers(0, B, size=(B, 8), dtype=np.int32)
+    mask = np.ones((B,), np.uint32)
+    mask[0] = 0                                  # slot 0 stays dead
+    return BuiltRunner(
+        make_multi_step_paged(CONWAY, tr, tw), (tiles, 8, nbr, mask),
+        chain=lambda out, args: (out[0],) + tuple(args[1:]),
+        require_gather=True)

@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis import sanitizers
 from ..ops.stencil import Topology
 from .mesh import COL_AXIS, ROW_AXIS, Mesh
 
@@ -115,9 +116,12 @@ def transfer(mesh: Mesh, moves: Sequence[Tuple[int, int, int]],
         tag = (d * n + q) * n + p
         if src == rank:
             strip = take(q, d).contiguous()
-            ops.append(dist.P2POp(dist.isend,
-                                  strip.cpu() if host else strip, dst,
-                                  tag=tag))
+            if host:
+                with sanitizers.allow_host_transfers(
+                        "gloo sends CPU tensors only: a strip bound for "
+                        "another process is staged through host memory"):
+                    strip = strip.cpu()
+            ops.append(dist.P2POp(dist.isend, strip, dst, tag=tag))
         else:
             device = mesh.groups[mesh.slot_of[p][0]][0]
             like = take(mesh.positions[0], d)

@@ -58,12 +58,14 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from ..analysis import sanitizers
 from ..models.elementary import ElementaryRule
 from ..models.generations import GenRule
 from ..models.ltl import LtLRule
 from ..models.rules import Rule
 from ..ops import cuda_stencil
 from ..ops import stencil as stencil_ops
+from ..ops._builders import BuiltRunner, register_builder, steps_in_place
 from ..ops.elementary import step_elementary
 from ..ops.generations import step_generations_ext
 from ..ops.ltl import step_ltl_ext
@@ -86,6 +88,7 @@ from ..ops.sparse import (
     tile_activity,
 )
 from ..ops.stencil import Topology
+from ..utils.interop import host_to_device
 from .halo import (
     _moved,
     _sources,
@@ -789,8 +792,12 @@ def _make_flagged_sparse(mesh: Mesh, topology: Topology, rule) -> Callable:
     def gen(parts, flags):
         ext = exchange_halo(parts, mesh, topology)
         fext = exchange_halo(flags, mesh, topology)
-        awake = torch.cat([f.flatten(1).sum(1).to(home) for f in fext]
-                          ).tolist()
+        with sanitizers.allow_host_transfers(
+                "the flagged sparse runner reads every position's wake "
+                "count back once per generation: the skip is a host "
+                "decision"):
+            awake = torch.cat([f.flatten(1).sum(1).to(home) for f in fext]
+                              ).tolist()
         new_parts, new_flags = [], []
         base = 0
         for e, own in zip(ext, parts):
@@ -799,8 +806,8 @@ def _make_flagged_sparse(mesh: Mesh, topology: Topology, rule) -> Callable:
             flag = torch.zeros((own.shape[0], 1, 1), dtype=torch.int32,
                                device=own.device)
             if slots:
-                idx = torch.tensor(slots, dtype=torch.int64,
-                                   device=own.device)
+                idx = host_to_device(torch.tensor(slots, dtype=torch.int64),
+                                     own.device)
                 stepped = step(e[idx])
                 changed = (stepped != own[idx]).flatten(1).any(1)
                 own = own.clone()
@@ -1079,8 +1086,12 @@ def _make_tiled_sparse(mesh: Mesh, rule, topology: Topology,
             topology, depth=dx)
         cands = [_dilate(a != 0, wrap=False, dy=dy, dx=dx)[
             ..., dy:a.shape[-2] - dy, dx:a.shape[-1] - dx] for a in aext]
-        counts = torch.cat([c.flatten(1).sum(1).to(home) for c in cands]
-                           ).tolist()                   # the host transfer
+        with sanitizers.allow_host_transfers(
+                "the tiled sparse runner reads every shard's candidate "
+                "count back once per generation: each shard's choice "
+                "between its windows and a whole-shard step"):
+            counts = torch.cat([c.flatten(1).sum(1).to(home) for c in cands]
+                               ).tolist()
         stats["syncs"] += 1
         out, base = [], 0
         for buf, cand in zip(rings.bufs, cands):
@@ -1092,12 +1103,13 @@ def _make_tiled_sparse(mesh: Mesh, rule, topology: Topology,
             sparse = [s for s in range(k) if mine[s] <= cap]
             total = sum(mine[s] for s in sparse)
             if total:
-                sel = cand if len(sparse) == k else cand[sparse]
+                sp = None if len(sparse) == k else host_to_device(
+                    torch.tensor(sparse, dtype=torch.int64), buf.device)
+                sel = cand if sp is None else cand[sp]
                 key = (~sel).flatten().to(torch.int8)
                 flat = torch.argsort(key, stable=True)[:total]
                 which, rest = flat // (nty * ntx), flat % (nty * ntx)
-                slot = which if len(sparse) == k else torch.tensor(
-                    sparse, dtype=torch.int64, device=buf.device)[which]
+                slot = which if sp is None else sp[which]
                 ty, tx = rest // ntx, rest % ntx
                 changed = windows_step(buf, slot, ty, tx)
                 act[slot, ty, tx] = changed.to(torch.int32)
@@ -1118,6 +1130,7 @@ def _make_tiled_sparse(mesh: Mesh, rule, topology: Topology,
             out.append(act)
         return out
 
+    @steps_in_place
     def run(state: ShardedGrid, act: ShardedGrid, n: int):
         h, w = state.parts[0].shape[-2:]
         nty, ntx = _tile_grid_shape(h, w, tile_rows, tile_words)
@@ -1134,3 +1147,118 @@ def _make_tiled_sparse(mesh: Mesh, rule, topology: Topology,
 
     run.stats = stats
     return run
+
+
+# -- contract-gate registrations (ops/_builders.py BUILDERS) -------------------
+#
+# Zero-arg factories (the device aside) the contract gate
+# (analysis/contracts.py) enumerates: each builds a runner on a (2, 2)
+# mesh of one device with the JAX package's seeded example grid and states
+# what one call must do. Meshes and grids are built only when the gate
+# calls the factory.
+
+
+def _contract_example(device, mesh_shape=(2, 2), grid=(64, 128), *,
+                      packed=True, banded=False):
+    from ..ops import bitpack
+    from ..ops.packed import _contract_soup
+    from .mesh import make_mesh
+
+    m = make_mesh(mesh_shape, [device] * (mesh_shape[0] * mesh_shape[1]))
+    g = _contract_soup(device, grid)
+    return m, device_put_sharded_grid(bitpack.pack(g) if packed else g, m,
+                                      banded=banded)
+
+
+@register_builder("sharded.step_packed", tags=("sharded", "packed"))
+def _contract_step_packed(device):
+    from ..models.rules import CONWAY
+
+    m, p = _contract_example(device)
+    return BuiltRunner(make_step_packed(m, CONWAY, Topology.TORUS), (p,))
+
+
+@register_builder("sharded.multi_step_packed", tags=("sharded", "packed"))
+def _contract_multi_step_packed(device):
+    from ..models.rules import CONWAY
+
+    m, p = _contract_example(device)
+    return BuiltRunner(make_multi_step_packed(m, CONWAY, Topology.TORUS),
+                       (p, 8))
+
+
+@register_builder("sharded.step_dense", tags=("sharded", "dense"))
+def _contract_step_dense(device):
+    from ..models.rules import CONWAY
+
+    m, g = _contract_example(device, packed=False)
+    return BuiltRunner(make_step_dense(m, CONWAY, Topology.TORUS), (g,))
+
+
+@register_builder("sharded.multi_step_dense", tags=("sharded", "dense"))
+def _contract_multi_step_dense(device):
+    from ..models.rules import CONWAY
+
+    m, g = _contract_example(device, packed=False)
+    return BuiltRunner(make_multi_step_dense(m, CONWAY, Topology.TORUS),
+                       (g, 8))
+
+
+@register_builder("sharded.multi_step_packed_sparse",
+                  tags=("sharded", "packed", "sparse"))
+def _contract_multi_step_packed_sparse(device):
+    from ..models.rules import CONWAY
+
+    m, p = _contract_example(device)
+    gens = 8
+    return BuiltRunner(
+        make_multi_step_packed_sparse(m, CONWAY, Topology.TORUS),
+        (p, initial_flags(m), gens),
+        chain=lambda out, args: (out[0], out[1], args[2]),
+        host_syncs=gens,
+        host_sync_reason="the skip is a host decision: every position's "
+                         "wake count comes back once per generation")
+
+
+@register_builder("sharded.multi_step_packed_deep",
+                  tags=("sharded", "packed", "comm-avoiding"))
+def _contract_multi_step_packed_deep(device):
+    from ..models.rules import CONWAY
+
+    g = 8
+    m, p = _contract_example(device)
+    return BuiltRunner(
+        make_multi_step_packed_deep(m, CONWAY, Topology.TORUS,
+                                    gens_per_exchange=g),
+        (p, 1),
+        # one chunk: the call's bytes are one exchange's model
+        expected_halo_bytes=deep_exchange_bytes(
+            _global_shape(p), m, Topology.TORUS, g),
+        halo_model=f"deep_exchange_bytes(k={g})")
+
+
+@register_builder("sharded.multi_step_packed_ghost",
+                  tags=("sharded", "packed", "comm-avoiding"))
+def _contract_multi_step_packed_ghost(device):
+    from ..models.rules import CONWAY
+
+    k = 4
+    m, p = _contract_example(device)
+    return BuiltRunner(
+        # unroll_chunks=1: the prologue is the call's only exchange (the
+        # final block computes straight out of its halos)
+        make_multi_step_packed_ghost(m, CONWAY, Topology.TORUS,
+                                     gens_per_exchange=k, unroll_chunks=1),
+        (p,),
+        expected_halo_bytes=ghost_exchange_bytes(
+            _global_shape(p), m, Topology.TORUS, k),
+        halo_model=f"ghost_exchange_bytes(k={k})")
+
+
+@register_builder("sharded.multi_step_banded", tags=("sharded", "packed"))
+def _contract_multi_step_banded(device):
+    from ..models.rules import CONWAY
+
+    m, p = _contract_example(device, banded=True)
+    return BuiltRunner(make_multi_step_banded(m, CONWAY, Topology.TORUS),
+                       (p, 8))

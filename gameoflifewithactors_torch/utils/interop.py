@@ -23,6 +23,18 @@ import numpy as np
 import torch
 
 
+def host_to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on ``device`` without a host sync. On a card it is
+    staged through pinned memory and copied asynchronously on the current
+    stream: a blocking copy would first wait for every kernel queued on
+    the stream (and trips the transfer guard,
+    :func:`..analysis.sanitizers.no_implicit_host_transfers`)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def state_from_numpy(words_u32: np.ndarray, device="cpu") -> torch.Tensor:
     """(H, W/32) words or a (b, H, W/32) stack, uint32 -> a new int32
     tensor on ``device``, bit for bit (the tensor never aliases the
