@@ -109,6 +109,15 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    negative control raises; the contract gate on the card
    (``contracts --device cuda --strict``, one line per runner); the lint
    of the port tree; B1's ms per generation with the guard and without.
+   The fleet drills (``drills_phase``, ``gameoflifewithactors_torch.drills``
+   called at card sizes, every drill process under ``GOLTPU_SANITIZE=1``):
+   ``serve_load`` over 200 sessions of 1024^2-class grids (B2's lane form)
+   with a SIGKILL and ``--resume`` of the server; ``soak``, a worker per
+   flavor at 1024^2-4096^2 and an unfaulted twin each under the seeded
+   fault plan, one SIGKILLed and resumed, the packed worker also equal to
+   B1; ``chaos_multihost``, four gloo processes on a (2, 2) mesh at 6144 x
+   4096 through a preemption, checkpoint rot and a kill, 14 verdicts, the
+   final grid equal to the single-device oracle and to B1.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -2867,6 +2876,155 @@ def analysis_phase(cs, card: str, dev, repo: str) -> dict:
     return out
 
 
+# the fleet drills (gameoflifewithactors_torch.drills) at card sizes, cut
+# from the batch cells' 16384^2 because each drill saves every chunk (zlib)
+DRILL_FAMILIES = (  # the JAX drill's split at serving-cell widths
+    {"rule": "B3/S23", "height": 1024, "width": 1024, "topology": "torus"},
+    {"rule": "B36/S23", "height": 1024, "width": 1024, "topology": "torus"},
+    {"rule": "B3/S23", "height": 512, "width": 1024, "topology": "dead"},
+)
+DRILL_SESSIONS = 200
+DRILL_SOAK_SHAPES = {"packed": (4096, 4096), "dense": (4096, 4096),
+                     "sparse": (4096, 4096), "ltl": (2048, 2048),
+                     "ensemble": (1024, 1024)}
+DRILL_SOAK_PROCESSES = 5       # one worker per flavor, five oracle twins
+DRILL_CHAOS_SHAPE = (6144, 4096)   # rows divide by 2, 3, 4; 128 words by 2
+DRILL_CHAOS_PROCESSES = 4
+DRILL_CHAOS_MESH = (2, 2)
+
+
+def drills_phase(card: str, dev) -> dict:
+    """The fleet drills on the card, each called as a plain function whose
+    failure fails the script (nothing caught, ``GOLTPU_SANITIZE=1`` in
+    every drill process), every process loading this run's kernels:
+
+    (a) ``serve_load``: 200 sessions over HTTP in the JAX drill's three
+        families at 1024^2-class widths (each resolving to B2's lane
+        form), ladder 1,8,64, two mixed rounds, 40 sampled grids against
+        the numpy oracle, a SIGKILL and ``--resume`` of the server;
+    (b) ``soak``: one worker per flavor (packed, dense, sparse at 4096^2,
+        LtL at 2048^2, an ensemble of two 1024^2 members) and five oracle
+        twins, 240 generations, a checkpoint every 40, the seeded plan
+        with one SIGKILL and resume; the packed worker's ``final.npy``
+        also equals B1;
+    (c) ``chaos_multihost``: four gloo processes on a (2, 2) mesh of the
+        card, k = 4, 120 generations in chunks of 20 at 6144 x 4096,
+        through a preemption, checkpoint rot and a kill: all 14 verdicts
+        PASS, ``final.npy`` equal to the single-device oracle and to B1."""
+    import torch
+    from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+    from gameoflifewithactors_torch.drills import (chaos_multihost,
+                                                   serve_load, soak)
+    from gameoflifewithactors_torch.resilience.distributed import (
+        ElasticSpec, initial_grid)
+    from gameoflifewithactors_torch.resilience.worker import genesis
+    from gameoflifewithactors_torch.serve.lanes import SpecFamily
+
+    t_phase = time.perf_counter()
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_drills_")
+    before = os.environ.get(aot_cache.ENV_CACHE_DIR)
+    os.environ[aot_cache.ENV_CACHE_DIR] = aot_cache.cache_root()
+    try:
+        # -- (a) serve_load ----------------------------------------------------
+        for family in DRILL_FAMILIES:
+            check(SpecFamily.from_spec(family, dev).backend == "cuda",
+                  f"{family} does not resolve to B2's lane form")
+        t0 = time.perf_counter()
+        served = serve_load.run(os.path.join(work, "serve"),
+                                sessions=DRILL_SESSIONS, device="cuda",
+                                families=DRILL_FAMILIES)
+        out["serve_load_s"] = time.perf_counter() - t0
+        check(served["ok"], f"serve_load failed: {served['failures'][:10]}")
+        out["serve_resume_s"] = served["resume_seconds"]
+        print(f"drills (a) serve_load on {dev}: {served['sessions']} "
+              f"sessions ({', '.join(f['rule'] + ' ' + str(f['height']) + 'x' + str(f['width']) + ' ' + f['topology'] for f in DRILL_FAMILIES)}; "
+              f"B2's lane form), {served['sampled']} grids against the "
+              f"numpy oracle before the kill, after the resume and after "
+              f"stepping on; server SIGKILL to a live /healthz with every "
+              f"session {served['resume_seconds']:.3f} s; drill "
+              f"{out['serve_load_s']:.1f} s  [{card}]")
+
+        # -- (b) soak ------------------------------------------------------------
+        t0 = time.perf_counter()
+        soaked = soak.run(os.path.join(work, "soak"),
+                          processes=DRILL_SOAK_PROCESSES, device="cuda",
+                          shapes=DRILL_SOAK_SHAPES)
+        out["soak_s"] = time.perf_counter() - t0
+        check(soaked["ok"],
+              f"soak failed: {soaked['invariant_failures'][:10]}")
+        with open(os.path.join(work, "soak", "w0", "spec.json")) as f:
+            packed_spec = json.load(f)
+        check(packed_spec["flavor"] == "packed", f"{packed_spec['flavor']}")
+        truth = Engine(genesis(packed_spec, 0), "B3/S23", backend="cuda",
+                       device=dev)
+        truth.step(packed_spec["generations"])
+        check(np.array_equal(
+            np.load(os.path.join(work, "soak", "w0", "final.npy")),
+            truth.snapshot()), "the soak's packed worker differs from B1")
+        del truth
+        reports = [w["report"] for w in soaked["results"]["workers"]]
+        restarts = {r["name"]: sum(m["supervisor"]["restarts"]
+                                   for m in r["members"]) for r in reports}
+        stalls = {r["name"]: r["stalls_detected"] for r in reports}
+        applied = {r["name"]: [f["kind"] for m in r["members"]
+                               for f in m["faults_applied"]]
+                   for r in reports}
+        print(f"drills (b) soak on {dev}: {DRILL_SOAK_PROCESSES} workers "
+              f"and {DRILL_SOAK_PROCESSES} oracle twins under "
+              f"GOLTPU_SANITIZE=1 (shapes {DRILL_SOAK_SHAPES}), kills "
+              f"{soaked['results']['killed']}, faults applied {applied}, "
+              f"restarts {restarts}, stalls detected {stalls}; every final "
+              f"grid == its oracle twin, the packed worker's == B1; drill "
+              f"{out['soak_s']:.1f} s  [{card}]")
+
+        # -- (c) chaos_multihost -----------------------------------------------
+        t0 = time.perf_counter()
+        chaos = chaos_multihost.run(
+            os.path.join(work, "chaos"), processes=DRILL_CHAOS_PROCESSES,
+            shape=DRILL_CHAOS_SHAPE, mesh_shape=DRILL_CHAOS_MESH,
+            device="cuda")
+        out["chaos_s"] = time.perf_counter() - t0
+        verdicts = chaos["oracle"]["checks"]
+        check(chaos["ok_with_oracle"] and len(verdicts) == 14
+              and all(v["ok"] for v in verdicts),
+              f"chaos drill failed: {[v for v in verdicts if not v['ok']]}")
+        spec = ElasticSpec.from_dict(chaos["spec"])
+        truth = Engine(initial_grid(spec), spec.rule, backend="cuda",
+                       device=dev)
+        truth.step(spec.target_gens)
+        check(np.array_equal(np.load(chaos["final_grid"]), truth.snapshot()),
+              "the chaos fleet's final grid differs from B1")
+        del truth
+        torch.cuda.empty_cache()
+        epochs = chaos["epochs"]
+        out["chaos_detection_s"] = [e.get("detection_seconds")
+                                    for e in epochs]
+        out["chaos_recovery_s"] = [e.get("recovery_seconds") for e in epochs]
+        print(f"drills (c) chaos_multihost on {dev}: "
+              f"{DRILL_CHAOS_PROCESSES} gloo processes, mesh "
+              f"{DRILL_CHAOS_MESH}, k = {spec.gens_per_exchange}, "
+              f"{DRILL_CHAOS_SHAPE[0]} x {DRILL_CHAOS_SHAPE[1]}, "
+              f"{spec.target_gens} generations in chunks of {spec.chunk}; "
+              f"faults {[(f['kind'], f['fired_at_gen'], f['epoch']) for f in chaos['faults_fired']]}; "
+              f"rosters {[e['num_processes'] for e in epochs]}; detection "
+              f"{out['chaos_detection_s']} s, recovery "
+              f"{out['chaos_recovery_s']} s, startup "
+              f"{[e.get('startup_seconds') for e in epochs]} s per epoch; "
+              f"14/14 PASS, final grid == the oracle == B1; drill "
+              f"{out['chaos_s']:.1f} s  [{card}]")
+    finally:
+        if before is None:
+            os.environ.pop(aot_cache.ENV_CACHE_DIR, None)
+        else:
+            os.environ[aot_cache.ENV_CACHE_DIR] = before
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"drills phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3250,6 +3408,8 @@ def main() -> int:
     stamp("the multi-process run")
     analysis_phase(cs, card, dev, repo)
     stamp("the analysis phase")
+    drills_phase(card, dev)
+    stamp("the fleet drills")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)

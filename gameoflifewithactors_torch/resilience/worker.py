@@ -22,8 +22,13 @@ Launcher protocol:
   the counters;
 - the launcher may SIGKILL this process at any moment (that *is* the
   ``kill`` fault kind) and relaunch with ``--resume``: the worker
-  reloads the last atomic checkpoint and skips plan events already
-  consumed before the checkpointed generation;
+  reloads the last atomic checkpoint and skips the plan events an
+  earlier incarnation consumed (``progress.json``, rewritten at every
+  chunk boundary: the events applied, the supervisor's counters, the
+  stalls detected and flight dumps), so that the final report counts
+  every incarnation's faults, restarts, stalls and dumps (the JAX
+  package's worker reports its last incarnation's only, and skips every
+  event scheduled before the checkpointed generation, applied or not);
 - on completion the worker writes ``final.npy`` (the exact grid — the
   launcher diffs it against the unfaulted oracle's) and ``report.json``
   (supervisor stats + fault accounting), then exits 0. Exit 2 = the
@@ -60,6 +65,22 @@ def _checkpoint_path(workdir: Path, member: int) -> Path:
     return workdir / f"checkpoint-m{member}.npz"
 
 
+def _add_stats(prior: dict, now: dict) -> dict:
+    """Supervisor counters over incarnations: ``prior`` (an earlier
+    process's, from ``progress.json``) plus ``now``; the generation and
+    the circuit are this process's."""
+    out = dict(now)
+    for key, value in now.items():
+        if key == "restarts_by_cause":
+            merged = dict(prior.get(key, {}))
+            for cause, n in value.items():
+                merged[cause] = merged.get(cause, 0) + n
+            out[key] = merged
+        elif key not in ("generation", "circuit_open"):
+            out[key] = prior.get(key, 0) + value
+    return out
+
+
 def genesis(spec: dict, member: int) -> np.ndarray:
     """Member ``member``'s start grid: ``random_fill`` of its cells alive,
     drawn by numpy from ``rng_seed + member``."""
@@ -86,8 +107,10 @@ def _build_coordinator(spec: dict, member: int, resume: bool):
 
 
 def _run_member(spec: dict, member: int, resume: bool,
-                health: dict, health_lock: threading.Lock) -> dict:
-    """One supervised member run; returns its report entry."""
+                health: dict, health_lock: threading.Lock,
+                progress: dict, save_progress) -> dict:
+    """One supervised member run; returns its report entry. ``progress``
+    holds what earlier incarnations did; ``save_progress()`` writes it."""
     from ..obs import spans as obs_spans
     from ..resilience import faultplan as plan_lib
     from ..resilience.supervisor import RestartPolicy, Supervisor
@@ -97,13 +120,17 @@ def _run_member(spec: dict, member: int, resume: bool,
     stall_seconds = float(spec.get("stall_seconds", deadline * 1.5))
     # plan events target the worker, and the plan exercises member 0 of
     # an ensemble (members 1.. are the fault-free control group); events
-    # already consumed before the checkpointed generation stay consumed
-    events = [plan_lib.FaultEvent.from_dict(e)
-              for e in spec.get("events", [])] if member == 0 else []
-    events = [e for e in events
+    # an earlier incarnation consumed stay consumed
+    mine = progress["members"].setdefault(
+        str(member), {"consumed": [], "applied": [], "supervisor": {}})
+    prior_stats = dict(mine["supervisor"])
+    applied: List[dict] = mine["applied"]
+    events = [(i, plan_lib.FaultEvent.from_dict(e))
+              for i, e in enumerate(spec.get("events", []))] \
+        if member == 0 else []
+    events = [(i, e) for i, e in events
               if e.kind not in plan_lib.LAUNCHER_KINDS
-              and e.at_gen >= resumed_gen]
-    applied: List[dict] = []
+              and i not in mine["consumed"]]
 
     supervisor = Supervisor(
         coordinator,
@@ -120,13 +147,18 @@ def _run_member(spec: dict, member: int, resume: bool,
     chunk_sleep = float(spec.get("chunk_sleep_seconds", 0.0))
 
     def before_chunk(gen: int) -> None:
-        due = [e for e in events if e.at_gen <= gen]
-        for ev in due:
-            events.remove(ev)
+        # the chunks before this boundary are done: faults applied at the
+        # last one have had their restarts, stalls and dumps
+        mine["supervisor"] = _add_stats(prior_stats, supervisor.stats())
+        save_progress()
+        due = [(i, e) for i, e in events if e.at_gen <= gen]
+        for i, ev in due:
+            events.remove((i, ev))
             kind = plan_lib.apply_fault(supervisor, ev,
                                         stall_seconds=stall_seconds)
             applied.append({"kind": kind, "scheduled": ev.kind,
                             "at_gen": ev.at_gen, "applied_at_gen": gen})
+            mine["consumed"].append(i)
         with health_lock:
             health["generation"] = gen
             health["member"] = member
@@ -141,13 +173,15 @@ def _run_member(spec: dict, member: int, resume: bool,
     # a child of the launcher's on the merged fleet timeline
     with obs_spans.span("soak.member", member=member,
                         flavor=spec["flavor"], target_gens=target):
-        stats = supervisor.run(max(0, target - coordinator.generation))
+        supervisor.run(max(0, target - coordinator.generation))
+    mine["supervisor"] = stats = _add_stats(prior_stats, supervisor.stats())
+    save_progress()
     return {
         "member": member,
         "resumed_generation": resumed_gen,
         "final_generation": coordinator.generation,
         "population": coordinator.population(),
-        "faults_applied": applied,
+        "faults_applied": list(applied),
         "supervisor": stats,
     }
 
@@ -200,6 +234,20 @@ def run_spec(spec: dict, *, resume: bool = False,
         health_info=health_info)
     announce(f"METRICS_PORT {server.port}", flush=True)
 
+    # what earlier incarnations did (a --resume after a SIGKILL)
+    progress_path = workdir / "progress.json"
+    progress = (json.loads(progress_path.read_text())
+                if resume and progress_path.exists() else {"members": {}})
+    prior_stalls = int(progress.get("stalls_detected", 0))
+    prior_dumps = int(progress.get("flight_dumps", 0))
+
+    def save_progress() -> None:
+        progress["stalls_detected"] = prior_stalls + len(wd.events_since(0))
+        progress["flight_dumps"] = prior_dumps + fr.dumps
+        tmp = workdir / f"progress.json.tmp{os.getpid()}"
+        tmp.write_text(json.dumps(progress))
+        os.replace(tmp, progress_path)
+
     members = (int(spec.get("ensemble_size", 2))
                if spec["flavor"] == "ensemble" else 1)
     report: dict = {"name": spec.get("name", "worker"),
@@ -209,7 +257,8 @@ def run_spec(spec: dict, *, resume: bool = False,
     try:
         grids = []
         for m in range(members):
-            entry = _run_member(spec, m, resume, health, health_lock)
+            entry = _run_member(spec, m, resume, health, health_lock,
+                                progress, save_progress)
             report["members"].append(entry)
             grids.append(_final_grid(spec, m))
         final = grids[0] if members == 1 else np.stack(grids)
@@ -221,8 +270,8 @@ def run_spec(spec: dict, *, resume: bool = False,
     finally:
         with health_lock:
             health["done"] = True
-        report["stalls_detected"] = len(wd.events_since(0))
-        report["flight_dumps"] = fr.dumps
+        report["stalls_detected"] = prior_stalls + len(wd.events_since(0))
+        report["flight_dumps"] = prior_dumps + fr.dumps
         report["last_dump_reason"] = fr.last_dump_reason
         tmp = workdir / f"report.json.tmp{os.getpid()}"
         tmp.write_text(json.dumps(report, indent=2))

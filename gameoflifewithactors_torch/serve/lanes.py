@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..engine import resolve_device
 from ..models.generations import parse_any
 from ..models.rules import Rule
 from ..obs import spans as obs_spans
@@ -113,11 +114,12 @@ class SpecFamily:
                     f"|{self.topology.value}|{self.backend}")
 
     @classmethod
-    def from_spec(cls, spec: dict, device="cpu") -> "SpecFamily":
+    def from_spec(cls, spec: dict, device=None) -> "SpecFamily":
         """From a session-spec dict (the create-request body). ``backend``
-        'auto' resolves for ``device``: ``"cuda"`` on a CUDA device where
-        the kernel takes the shape, else ``"packed"``. Sharded meshes are
-        refused: lanes are single-device."""
+        'auto' resolves for ``device`` (:func:`..engine.resolve_device`:
+        the card unless the caller names the CPU): ``"cuda"`` on a CUDA
+        device where the kernel takes the shape, else ``"packed"``.
+        Sharded meshes are refused: lanes are single-device."""
         d = dict(spec)
         if d.get("mesh"):
             raise ValueError(
@@ -130,7 +132,7 @@ class SpecFamily:
         backend = d.get("backend", "auto")
         if backend == "auto":
             backend = "packed"
-            if torch.device(device).type == "cuda" and kernel_takes(
+            if resolve_device(device).type == "cuda" and kernel_takes(
                     int(height), int(width) // bitpack.WORD):
                 backend = "cuda"
         return cls(d.get("rule", "B3/S23"), height, width,
@@ -183,11 +185,11 @@ class Lane:
     """One batch executor: capacity slots of a family + occupancy."""
 
     def __init__(self, lane_id: str, family: SpecFamily, capacity: int,
-                 device="cpu"):
+                 device=None):
         self.lane_id = lane_id
         self.family = family
         self.capacity = int(capacity)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.slots: List[Optional[str]] = [None] * self.capacity
         self.state = torch.zeros((self.capacity, family.height, family.wq),
                                  dtype=torch.int32, device=self.device)
@@ -257,12 +259,12 @@ class LanePool:
     """
 
     def __init__(self, family: SpecFamily,
-                 ladder: Tuple[int, ...] = LANE_LADDER, device="cpu"):
+                 ladder: Tuple[int, ...] = LANE_LADDER, device=None):
         if not ladder:
             raise ValueError("lane ladder cannot be empty")
         self.family = family
         self.ladder = tuple(sorted(set(int(c) for c in ladder)))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.lanes: Dict[str, Lane] = {}
         self._seq = itertools.count(1)
         self.compactions = 0

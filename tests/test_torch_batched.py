@@ -115,7 +115,7 @@ def _lane_pair(backend, topology):
     spec = {"rule": "B36/S23", "height": 16, "width": 64,
             "topology": topology}
     t_lane = t_lanes.Lane("t", t_lanes.SpecFamily.from_spec(
-        dict(spec, backend=backend)), 4)
+        dict(spec, backend=backend), "cpu"), 4, "cpu")
     j_lane = j_lanes.Lane("j", j_lanes.SpecFamily.from_spec(
         dict(spec, backend="packed")), 4)
     words = np.random.default_rng(25).integers(

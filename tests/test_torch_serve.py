@@ -149,7 +149,7 @@ def test_cuda_lane_steps_n_where_the_jax_pallas_lane_steps_n_times_g():
     j_lane.place("s", words)
     j_lane.step(3, np.ones(1, np.uint32))
     t_lane = t_lanes.Lane("t", t_lanes.SpecFamily.from_spec(
-        dict(spec, backend="cuda")), 1)
+        dict(spec, backend="cuda"), "cpu"), 1, "cpu")
     t_lane.place("s", words)
     t_lane.step(3, np.ones(1, np.uint32))
 
@@ -163,15 +163,16 @@ def test_cuda_lane_steps_n_where_the_jax_pallas_lane_steps_n_times_g():
 
 def test_lane_specs_the_port_refuses_or_resolves():
     with pytest.raises(ValueError, match="'cuda'"):
-        SpecFamily.from_spec(dict(SPEC, backend="pallas"))
+        SpecFamily.from_spec(dict(SPEC, backend="pallas"), "cpu")
     with pytest.raises(ValueError, match="binary life-like"):
         SpecFamily("brain", 16, 32)
     with pytest.raises(ValueError, match="mesh"):
-        SpecFamily.from_spec(dict(SPEC, mesh="auto"))
+        SpecFamily.from_spec(dict(SPEC, mesh="auto"), "cpu")
     with pytest.raises(ValueError, match="at least 8 rows"):
         SpecFamily("B3/S23", 4, 32, backend="cuda")    # g > H
     # "auto" is "packed" on the CPU; on the card B2 unless g > H
-    assert SpecFamily.from_spec(dict(SPEC, backend="auto")).backend == "packed"
+    assert SpecFamily.from_spec(dict(SPEC, backend="auto"),
+                                "cpu").backend == "packed"
     assert SpecFamily.from_spec({"rule": "B3/S23", "shape": [16, 32]},
                                 "cpu").slot_bytes() == 2 * 16 * 1 * 4
     assert not t_lanes.kernel_takes(4, 1) and t_lanes.kernel_takes(8, 1)
@@ -179,6 +180,22 @@ def test_lane_specs_the_port_refuses_or_resolves():
     # pages where the shape divides the tiles, as the JAX "auto" does
     paged = SessionService(paged=True, device="cpu")
     assert paged._family(dict(SPEC, backend="auto")).backend == "packed"
+
+
+def test_lane_classes_default_to_the_card(monkeypatch):
+    """``SpecFamily.from_spec``, ``Lane`` and ``LanePool`` resolve their
+    device as every entry point does: the card unless the caller names
+    the CPU, and a RuntimeError where there is no card (an "auto" spec
+    never falls back to "packed" on the CPU unasked)."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    family = SpecFamily.from_spec(dict(SPEC, backend="packed"), "cpu")
+    for make in (lambda: SpecFamily.from_spec(dict(SPEC, backend="auto")),
+                 lambda: t_lanes.Lane("t", family, 1),
+                 lambda: t_lanes.LanePool(family)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 # -- behaviour on the ladder ---------------------------------------------------

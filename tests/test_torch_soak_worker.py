@@ -96,3 +96,64 @@ def test_worker_killed_resumes_and_equals_jax(tmp_path):
     np.testing.assert_array_equal(final, want.snapshot())
     assert member["population"] == int(final.sum()) > 0
     assert t_worker.FLAVORS == j_worker.FLAVORS
+
+
+def test_resumed_report_counts_the_killed_incarnation(tmp_path):
+    """A stall and a corruption applied before the SIGKILL stay in the
+    resumed worker's report (``progress.json``): the faults, the restarts
+    they caused, the stall detected and its flight dump; neither is
+    applied again, and the final grid equals the JAX package's
+    coordinator run unfaulted."""
+    plan = [
+        FaultEvent(worker=0, at_gen=20, kind="stall").to_dict(),
+        FaultEvent(worker=0, at_gen=30, kind="corrupt_region",
+                   params={"top_f": 0.2, "left_f": 0.3, "h_f": 0.3,
+                           "w_f": 0.3, "seed": 4}).to_dict(),
+    ]
+    workdir = tmp_path / "w0"
+    spec = {"name": "t-progress", "flavor": "packed", "shape": [64, 64],
+            "generations": 100, "checkpoint_every": 10, "rng_seed": 9,
+            "workdir": str(workdir), "watchdog_deadline": 1.0,
+            "events": plan, "device": "cpu", "chunk_sleep_seconds": 0.2}
+    spec_path = tmp_path / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    cmd = [sys.executable, "-m", "gameoflifewithactors_torch.resilience.worker",
+           "--spec", str(spec_path)]
+    env = dict(os.environ, GOLTPU_SANITIZE="1")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        assert select.select([proc.stdout], [], [], 60)[0], "no METRICS_PORT"
+        port = int(proc.stdout.readline().split()[1])
+        deadline = time.perf_counter() + 60
+        while _healthz(port).get("generation", 0) < 50:
+            assert time.perf_counter() < deadline and proc.poll() is None
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=30)
+    progress = json.loads((workdir / "progress.json").read_text())
+    assert progress["members"]["0"]["consumed"] == [0, 1]
+
+    resumed = subprocess.run(cmd + ["--resume"], capture_output=True,
+                             text=True, timeout=120, env=env)
+    assert resumed.returncode == 0, resumed.stderr[-2000:]
+    report = json.loads((workdir / "report.json").read_text())
+    assert set(report) == REPORT_FIELDS and report["ok"] and report["resume"]
+    member = report["members"][0]
+    assert [(f["kind"], f["applied_at_gen"])
+            for f in member["faults_applied"]] == [("stall", 20),
+                                                   ("corrupt_region", 30)]
+    assert member["resumed_generation"] >= 40
+    assert member["supervisor"]["restarts_by_cause"] == \
+        {"fault:stall": 1, "fault:corrupt_region": 1}
+    assert report["stalls_detected"] >= 1 and report["flight_dumps"] >= 1
+
+    want = JCoord((64, 64), "B3/S23", seed=t_worker.genesis(spec, 0),
+                  backend="packed")
+    want.tick(100)
+    np.testing.assert_array_equal(np.load(workdir / "final.npy"),
+                                  want.snapshot())
