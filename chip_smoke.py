@@ -117,7 +117,15 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    fault plan, one SIGKILLed and resumed, the packed worker also equal to
    B1; ``chaos_multihost``, four gloo processes on a (2, 2) mesh at 6144 x
    4096 through a preemption, checkpoint rot and a kill, 14 verdicts, the
-   final grid equal to the single-device oracle and to B1.
+   final grid equal to the single-device oracle and to B1. The examples
+   (``examples_phase``): the ten demos of
+   ``gameoflifewithactors_torch.examples`` at their default sizes with
+   ``--device cuda`` (the mesh demos on four positions of cuda:0), each
+   with its launches counted (B1 in checkpoint_resume and telemetry, B2 in
+   ensemble, fault_recovery and both band layouts of distributed_bands, B4
+   in ltl_zoo) and its wall seconds, held against its CPU twin (the same
+   demo with ``--device cpu``: stdout and final grids) and its own oracle;
+   then ``fleet_top --once`` over a live port server on the card.
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -3025,6 +3033,261 @@ def drills_phase(card: str, dev) -> dict:
     return out
 
 
+EXAMPLE_POSITIONS = 4     # the mesh demos' positions, all on cuda:0
+EXAMPLES = [  # (demo, flags beside --device, the kernel it must launch)
+    ("wolfram", [], None),
+    ("ltl_zoo", [], "life_ltl"),
+    # the default soup dies out under both binary rules by generation 20:
+    # at this fill all three rules keep live cells
+    ("ltl_zoo", ["--fill", "0.55"], "life_ltl"),
+    ("checkpoint_resume", [], "life_packed"),
+    ("sparse_gun", [], None),
+    ("ensemble", [], "life_slab"),
+    ("telemetry", ["--stall-demo"], "life_packed"),
+    ("unbounded_glider", [], None),
+    ("long_row", ["--positions", str(EXAMPLE_POSITIONS)], None),
+    ("fault_recovery", ["--positions", str(EXAMPLE_POSITIONS)], "life_slab"),
+    ("distributed_bands", ["--positions", str(EXAMPLE_POSITIONS)],
+     "life_slab"),
+]
+_EXAMPLE_MASKS = (  # what may differ between the card's run and its twin's
+    (re.compile(r"\(\s*[0-9.]+ gens/s\)"), "(<rate> gens/s)"),
+    (re.compile(r"[0-9.]+e[+-][0-9]+ cell-updates/s"), "<rate> cell-updates/s"),
+    (re.compile(r"-> \S+"), "-> <path>"),
+    (re.compile(r"backend=\S+\s*"), "backend=<backend> "),
+)
+
+
+def _run_example(name: str, argv):
+    """(``run``'s result, its stdout, wall seconds) of one port demo."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    demo = importlib.import_module(f"gameoflifewithactors_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = demo.run(list(argv))
+    if "cuda" in argv:
+        torch.cuda.synchronize()
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def _masked(text: str) -> list:
+    lines = []
+    for line in text.splitlines():
+        for pattern, repl in _EXAMPLE_MASKS:
+            line = pattern.sub(repl, line)
+        lines.append(line)
+    return lines
+
+
+def _hold_example(name: str, card: dict, twin: dict, dev) -> str:
+    """Check one demo's card run against its CPU twin's (same arguments)
+    and its own oracle; return what held it."""
+    import torch
+
+    eq = np.array_equal
+    if name == "wolfram":
+        check(eq(card["image"], twin["image"]), "wolfram: the diagram differs")
+        return "diagram == CPU twin"
+    if name == "ltl_zoo":
+        check(card.keys() == twin.keys()
+              and all(eq(card[k], twin[k]) for k in card),
+              "ltl_zoo: a final grid differs from the CPU twin's")
+        return "three final grids == CPU twin (B4 box, B4 diamond, plane stack)"
+    if name == "checkpoint_resume":
+        check(eq(card["resumed"], card["uninterrupted"])
+              and eq(card["resumed"], twin["resumed"]),
+              "checkpoint_resume: resumed != uninterrupted or != CPU twin")
+        return "resumed == uninterrupted == CPU twin"
+    if name == "sparse_gun":
+        check(card["pops"] == twin["pops"]
+              and eq(card["engine"].snapshot(), twin["engine"].snapshot()),
+              f"sparse_gun: {card['pops']} against the CPU twin's "
+              f"{twin['pops']}")
+        return f"populations {card['pops']} and final grid == CPU twin"
+    if name == "ensemble":
+        check(eq(card["grids"], twin["grids"]),
+              "ensemble: the lane form's grids differ from its plain version's")
+        return "8 final grids (B2 lane form) == CPU twin (its plain version)"
+    if name == "telemetry":
+        reps = [json.load(open(r["report_path"])) for r in (card, twin)]
+        counts = [{k: v["count"] for k, v in r["phase_seconds"].items()}
+                  for r in reps]
+        check(counts[0] == counts[1] and counts[0]["scheduler.run"] == 1,
+              f"telemetry phase counts {counts}")
+        check(len(reps[0]["step_metrics"]) == len(reps[1]["step_metrics"]) == 8,
+              "telemetry: step metrics")
+        check(card["stall"] is not None and card["stall"].label
+              == twin["stall"].label, "telemetry: the watchdog line")
+        check(os.path.exists(card["trace_path"]), "telemetry: no trace file")
+        # the soup is drawn on the card: replay it through the plain path
+        from gameoflifewithactors_torch import Engine
+        from gameoflifewithactors_torch.models import seeds
+
+        coord = card["coordinator"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        plain = Engine(seeds.bernoulli(gen, coord.shape, 0.5), "B3/S23",
+                       backend="packed", device=dev)
+        plain.step(coord.generation)
+        check(eq(coord.snapshot(), plain.snapshot()),
+              "telemetry: the B1 run differs from the plain packed path")
+        return ("report fields == CPU twin; final grid == plain packed path "
+                f"at generation {coord.generation}")
+    if name == "unbounded_glider":
+        check(card["rc"] == 0 == twin["rc"], f"unbounded_glider rc {card['rc']}")
+        for u in ("universe", "twin"):
+            a, b = card[u].snapshot_cells(), twin[u].snapshot_cells()
+            check(a[0] == b[0] and eq(a[1], b[1]),
+                  f"unbounded_glider: the {u}'s cells differ from the CPU twin's")
+        return "restored twin bit-identical; cells == CPU twin"
+    if name == "long_row":
+        check(card.keys() == twin.keys()
+              and all(eq(card[k], twin[k]) for k in card),
+              "long_row: a final row differs from the CPU twin's")
+        return "three final rows == CPU twin"
+    if name == "fault_recovery":
+        check(card["backend"] == "cuda",
+              f"fault_recovery: auto on the mesh is {card['backend']}")
+        check(eq(card["replayed"], card["unfaulted"])
+              and eq(card["replayed"], twin["replayed"]),
+              "fault_recovery: the replay differs")
+        return "replay == unfaulted (B2 slab) == CPU twin"
+    if name == "distributed_bands":
+        check([b for b, _ in card.values()] == ["packed", "cuda", "cuda"],
+              f"distributed_bands backends {[b for b, _ in card.values()]}")
+        grids = [g for _, g in card.values()] + [g for _, g in twin.values()]
+        check(all(eq(grids[0], g) for g in grids[1:]),
+              "distributed_bands: a layout's grid differs")
+        return "three layouts' grids equal each other and the CPU twin's"
+    raise ValueError(name)
+
+
+def examples_phase(cs, card: str, dev, repo: str) -> dict:
+    """The ten port demos (``gameoflifewithactors_torch.examples``) on the
+    card at their default (full) sizes, each through ``run`` with
+    ``--device cuda`` (the mesh demos on ``--positions 4`` of cuda:0),
+    every kernel's launch count set to 0 just before and read just after,
+    then the same demo with ``--device cpu`` at the same arguments (its
+    CPU twin): stdout equal line for line with rates, paths and
+    ``backend=`` masked, final grids bit for bit, and each demo's own
+    oracle (resumed == uninterrupted, replay == unfaulted, the restored
+    twin, the telemetry run's grid against the plain packed path).
+    checkpoint_resume and telemetry must launch B1, ensemble,
+    fault_recovery and both band layouts of distributed_bands B2, and
+    ltl_zoo B4. Then ``fleet_top --once`` over a live port server on the
+    card."""
+    import signal
+    import urllib.request
+
+    t_phase = time.perf_counter()
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+
+    before = os.environ.get(aot_cache.ENV_CACHE_DIR)
+    os.environ[aot_cache.ENV_CACHE_DIR] = aot_cache.cache_root()
+    server = None
+    try:
+        for name, flags, kernel in EXAMPLES:
+            argv = list(flags)
+            if name == "telemetry":
+                argv_cpu = argv + ["--out", os.path.join(work, "cpu.json")]
+                argv += ["--out", os.path.join(work, "card.json")]
+            else:
+                argv_cpu = list(argv)
+            reset_launches(cs)
+            res, text, wall = _run_example(name, argv + ["--device", "cuda"])
+            counts = {k: v for k, v in launches(cs).items() if v}
+            twin, twin_text, twin_wall = _run_example(
+                name, argv_cpu + ["--device", "cpu"])
+            # telemetry prints timings throughout: its fields are held below
+            check(name == "telemetry" or _masked(text) == _masked(twin_text),
+                  f"{name}: stdout differs from the CPU twin's:\n{text}\n"
+                  f"-- CPU --\n{twin_text}")
+            if kernel is not None:
+                check(counts.get(kernel, 0) > 0,
+                      f"{name} launched no {kernel}: {counts}")
+            if name == "distributed_bands":
+                # each band layout: one chunk to warm, gens/8 timed, one
+                # to measure its halo bytes
+                check(counts.get("life_slab", 0) >= 2 * (1 + 64 // 8),
+                      f"distributed_bands: both band layouts must launch "
+                      f"B2's slab form: {counts}")
+            if name == "ltl_zoo":
+                backends = re.findall(r"backend=(\S+)", text)
+                check(backends == ["cuda", "cuda", "packed"],
+                      f"ltl_zoo backends on the card {backends}")
+            held = _hold_example(name, res, twin, dev)
+            out[" ".join([name] + flags)] = {"s": wall, "cpu_s": twin_wall,
+                                             "launches": counts}
+            tail = text.strip().splitlines()[-1]
+            print(f"examples {' '.join([name] + flags)}: {wall:.3f} s on the "
+                  f"card (CPU twin {twin_wall:.3f} s), launches {counts or 0}; "
+                  f"{held}; last line: {tail[:160]}  [{card}]")
+            del res, twin
+
+        # -- fleet_top --once over a live port server on the card -----------
+        server = start_server(repo, work)
+        line = server.stdout.readline()
+        check(line.startswith("SERVE_PORT "), f"serve announced {line!r}")
+        port = int(line.split()[1])
+
+        def req(method, path, body=None):
+            r = urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(body).encode(), method=method), timeout=120)
+            return r.status, json.loads(r.read().decode())
+
+        spec = {"rule": "B3/S23", "height": 1024, "width": 1024}
+        for i, tenant in enumerate(("acme", "acme", "initech")):
+            code, info = req("POST", "/sessions", {
+                "tenant": tenant, "spec": spec, "fill": 0.35, "rng_seed": i})
+            check(code == 201 and info["spec"]["backend"] == "cuda",
+                  f"{code} {info}")
+            code, info = req("POST", f"/sessions/{info['sid']}/step",
+                             {"n": 100})
+            check(code == 200 and info["generation"] == 100, f"{code} {info}")
+        t0 = time.perf_counter()
+        top = subprocess.run(
+            [sys.executable, "-m", "gameoflifewithactors_torch.obs.fleet_top",
+             "--once", f"w0=127.0.0.1:{port}"], cwd=repo,
+            capture_output=True, text=True, timeout=120)
+        out["fleet_top_s"] = time.perf_counter() - t0
+        check(top.returncode == 0, f"fleet_top --once exited "
+              f"{top.returncode}: {top.stderr[-2000:]}")
+        table = top.stdout.strip().splitlines()
+        header, row = table[0].split(), table[1].split()
+        cell = dict(zip(header, row))
+        check(cell["PROC"] == "w0" and cell["UP"] == "up"
+              and cell["SESS"] == "3" and cell["TENANTS"] == "2"
+              and cell["SLOTS"] == "3/8", f"fleet_top row {cell}")
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=120)
+        check(rc == 0, f"serve exited {rc} on SIGTERM")
+        print("examples fleet_top --once over a port server on the card (3 "
+              "sessions of 2 tenants, 1024^2 B3/S23, B2's lane form): "
+              f"{out['fleet_top_s']:.3f} s\n  " + "\n  ".join(table)
+              + f"  [{card}]")
+    finally:
+        if server is not None and server.poll() is None:
+            server.kill()
+            server.wait()
+        if before is None:
+            os.environ.pop(aot_cache.ENV_CACHE_DIR, None)
+        else:
+            os.environ[aot_cache.ENV_CACHE_DIR] = before
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"examples phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3410,6 +3673,8 @@ def main() -> int:
     stamp("the analysis phase")
     drills_phase(card, dev)
     stamp("the fleet drills")
+    examples_phase(cs, card, dev, repo)
+    stamp("the examples")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)

@@ -191,7 +191,9 @@ class Engine:
         band runner of the rule's family
         (full-width row bands over the flattened mesh, one slab-kernel
         launch per device and chunk), which "auto" picks on CUDA wherever
-        the slab kernel takes the band shape; "packed" and "dense" step 2D
+        the slab kernel takes the band shape; asked for by name on a mesh
+        of CPU positions, the band runner's wrappers run the kernels'
+        plain versions (single-grid "cuda" needs a CUDA device); "packed" and "dense" step 2D
         tiles in plain torch, one halo exchange per generation ("packed"
         with ``gens_per_exchange`` G > 1: one per G generations, through
         the ghost-zone pipeline where the tile holds its rings, else the
@@ -328,7 +330,10 @@ class Engine:
         if mesh is not None:
             self._check_mesh(h, w, backend)
         if backend == "cuda":
-            if not _kernels_run_on(self.device):
+            # on a mesh of CPU positions the band runner's kernel wrappers
+            # run their plain versions, as the JAX engine runs "pallas" in
+            # interpret mode off its TPU; a single grid asks for the card
+            if mesh is None and not _kernels_run_on(self.device):
                 raise ValueError(
                     "backend 'cuda' launches the CUDA kernel and needs a CUDA "
                     f"device, got {self.device}")

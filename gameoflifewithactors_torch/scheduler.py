@@ -17,6 +17,7 @@ import time
 from typing import Optional
 
 from .coordinator import GridCoordinator
+from .obs import spans as obs_spans
 
 
 class TickScheduler:
@@ -72,25 +73,31 @@ class TickScheduler:
         done = 0
         period = 1.0 / self.rate_hz if self.rate_hz else 0.0
         next_due = time.perf_counter()
-        while not self._stopped.is_set():
-            # quota check must precede the pause check: a completed run
-            # should return even if someone paused it at the finish line
-            if max_generations is not None and done >= max_generations:
-                break
-            if self._paused.is_set():
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
-                continue
-            n = self.generations_per_tick
-            if max_generations is not None:
-                n = min(n, max_generations - done)
-            self.coordinator.tick(n)
-            done += n
-            if period:
-                next_due += period
-                delay = next_due - time.perf_counter()
-                if delay > 0:
-                    time.sleep(delay)
-                else:
-                    next_due = time.perf_counter()  # fell behind; don't burst
+        # one enclosing span for the whole tick loop: rate-limit sleeps
+        # and pause waits are scheduler.run time minus the nested
+        # coordinator.tick time, with no extra per-iteration bookkeeping
+        with obs_spans.span("scheduler.run",
+                            max_generations=max_generations,
+                            rate_hz=self.rate_hz):
+            while not self._stopped.is_set():
+                # quota check must precede the pause check: a completed run
+                # should return even if someone paused it at the finish line
+                if max_generations is not None and done >= max_generations:
+                    break
+                if self._paused.is_set():
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                    continue
+                n = self.generations_per_tick
+                if max_generations is not None:
+                    n = min(n, max_generations - done)
+                self.coordinator.tick(n)
+                done += n
+                if period:
+                    next_due += period
+                    delay = next_due - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                    else:
+                        next_due = time.perf_counter()  # fell behind; don't burst
         return done

@@ -2,9 +2,10 @@
 against the JAX package's sharded engine on its 8 fake CPU devices, cell
 for cell.
 
-The port's band path (backend "cuda") launches the slab kernels, which
-need a card; ``on_card`` lets it run here on CPU tensors, where the
-kernel wrappers take their plain versions, so the engine's band wiring
+The port's band path (backend "cuda") launches the slab kernels on the
+card; asked for by name on a mesh of CPU positions it runs here, the
+kernel wrappers taking their plain versions (``on_card`` makes "auto"
+choose as on the card), so the engine's band wiring
 (runner per family, default depth, exact ``n``, per-band edge codes) is
 held against JAX ``Engine(mesh=..., backend="pallas")`` in interpret
 mode. ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run it on the
@@ -82,7 +83,7 @@ def test_tile_engine_matches_jax(topology):
 
 
 @pytest.mark.parametrize("topology", ["torus", "dead"])
-def test_band_engine_matches_jax_pallas_engine(on_card, topology):
+def test_band_engine_matches_jax_pallas_engine(topology):
     """backend "cuda" with a mesh is JAX's "pallas": 19 generations (two
     chunks of 8 and a remainder of 3) for B/S and Generations on (8, 1)
     and flattened (2, 4) meshes, and 7 of a radius-2 LtL box (three chunks
@@ -137,7 +138,7 @@ def test_auto_off_the_card_picks_what_jax_picks():
             jg.Engine(cells, rule, mesh=jm).backend, rule
 
 
-def test_a_chunk_deeper_than_a_band_raises_as_in_jax(on_card):
+def test_a_chunk_deeper_than_a_band_raises_as_in_jax():
     tm, jm = _meshes((8, 1))
     cells = _cells((64, 256), 2, 11)
     je = jg.Engine(cells, "conway", mesh=jm, backend="pallas",
@@ -151,7 +152,7 @@ def test_a_chunk_deeper_than_a_band_raises_as_in_jax(on_card):
         te.step(16)
 
 
-def test_shape_errors_match_jax(on_card):
+def test_shape_errors_match_jax():
     """The JAX engine's divisibility and radius messages, before any
     step."""
     tm8, jm8 = _meshes((8, 1))
@@ -201,8 +202,14 @@ def test_gens_per_exchange_and_unported_combinations():
     with pytest.raises(ValueError) as t_err:
         tg.Engine(cells, "conway", mesh=tm, device="cpu", backend="paged")
     assert str(t_err.value) == str(j_err.value)
+    # "cuda" on CPU positions is the band runner, as JAX's "pallas" is in
+    # interpret mode; a single grid needs the card
+    te = tg.Engine(cells, "conway", mesh=tm, backend="cuda", device="cpu")
+    je = jg.Engine(cells, "conway", mesh=jm, backend="pallas")
+    assert (te.backend, te.gens_per_exchange) == ("cuda", je.gens_per_exchange)
+    assert te.sharded_state.banded
     with pytest.raises(ValueError, match="CUDA device"):
-        tg.Engine(cells, "conway", mesh=tm, backend="cuda", device="cpu")
+        tg.Engine(cells, "conway", backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="not where mesh"):
         tg.Engine(cells, "conway", mesh=tm, device="meta")
 
@@ -226,7 +233,7 @@ def test_sharded_state_observation_and_injection():
     assert tg.Engine(grid, "conway", device="cpu").sharded_state is None
 
 
-def test_coordinator_with_a_mesh_matches_jax(on_card):
+def test_coordinator_with_a_mesh_matches_jax():
     tm, jm = _meshes((2, 4))
     for rule in ["brain", "conway"]:
         tc = tg.GridCoordinator((64, 128), rule, seed="r_pentomino", mesh=tm,

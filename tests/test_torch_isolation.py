@@ -58,7 +58,12 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "utils.provenance", "utils.fault", "analysis.sanitizers",
              "resilience.faultplan", "aot", "aot.cache", "aot.spec",
              "aot.registry", "aot.warmup", "resilience.distributed",
-             "resilience.worker"):
+             "resilience.worker", "obs.fleet_top", "examples",
+             "examples.wolfram", "examples.ltl_zoo",
+             "examples.checkpoint_resume", "examples.sparse_gun",
+             "examples.ensemble", "examples.telemetry",
+             "examples.unbounded_glider", "examples.long_row",
+             "examples.fault_recovery", "examples.distributed_bands"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
