@@ -125,7 +125,18 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    ensemble, fault_recovery and both band layouts of distributed_bands, B4
    in ltl_zoo) and its wall seconds, held against its CPU twin (the same
    demo with ``--device cpu``: stdout and final grids) and its own oracle;
-   then ``fleet_top --once`` over a live port server on the card.
+   then ``fleet_top --once`` over a live port server on the card. The
+   bench (``bench_phase``): ``python -m gameoflifewithactors_torch.bench``
+   in a subprocess on each 16384^2 main path (B1, B3, B4; 2000
+   generations, three repetitions), its launches per repetition counted
+   and its rate within 2x of this phase's tick; the bench in-process
+   under the profiler against the plain B1, its report through
+   ``roofline_report --check``; ``weak_scaling`` (packed and band) on 1,
+   2 and 4 positions of the card against B1; the gate, the history and
+   the store's scoreboard.
+   Config #5, the CLI's time to first step and every tick above are timed
+   by the bench package's helpers (``bench/timing.py``,
+   ``bench/config5.py``, ``bench/warm_vs_cold.py``).
 4. Timing with CUDA events: each kernel per launch at its main path's
    shapes, its plain version, the plain packed path, the least time the
    card could take, and a depth and tile sweep; B1 on each rule path; B2's
@@ -160,6 +171,8 @@ try:
         gen_ops_per_word, ltl_ops_per_word, ltl_sliding_ops_per_word,
         ltl_tree_ops_per_word, ops_per_word)
     from gameoflifewithactors_torch.utils.profiling import device_activity
+    from gameoflifewithactors_torch.bench.timing import (  # noqa: F401
+        nvidia_smi, tick_seconds, timed_ms, timed_run)
 except ImportError:
     print("chip_smoke: gameoflifewithactors_torch is not beside this script",
           file=sys.stderr)
@@ -181,13 +194,6 @@ PALLAS = "gameoflifewithactors_tpu/ops/pallas_stencil.py"
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def nvidia_smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sass_counts(so_path: str, nvcc: str):
@@ -282,38 +288,8 @@ GEN_RULES = {  # a rule on each of B3's rule paths (equality over K counts, tabl
     0: "B0/S8/C4"}
 
 
-def timed_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn`` over ``reps`` warm calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
-
-
-def reset_launches(cs) -> None:
-    cs.KERNEL_LAUNCHES = cs.GENERATIONS_LAUNCHES = cs.LTL_LAUNCHES = 0
-    cs.SLAB_LAUNCHES = cs.GENERATIONS_SLAB_LAUNCHES = cs.LTL_SLAB_LAUNCHES = 0
-
-
-def launches(cs) -> dict:
-    return {"life_packed": cs.KERNEL_LAUNCHES,
-            "life_slab": cs.SLAB_LAUNCHES,
-            "life_generations": cs.GENERATIONS_LAUNCHES,
-            "life_ltl": cs.LTL_LAUNCHES,
-            "life_generations_slab": cs.GENERATIONS_SLAB_LAUNCHES,
-            "life_ltl_slab": cs.LTL_SLAB_LAUNCHES}
 
 
 def mesh_codes(batch: int, device):
@@ -628,9 +604,9 @@ def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
               f"{spec} mesh start state differs from the single-device one")
         frames = []
         coord.subscribe(frames.append)
-        reset_launches(cs)
+        cs.reset_launch_counts()
         coord.run(MAIN_GENERATIONS, render_every=MAIN_TICK)
-        counts = launches(cs)
+        counts = cs.launch_counts()
         ticks = MAIN_GENERATIONS // MAIN_TICK
         expected = ticks * math.ceil(MAIN_TICK / g)
         check(counts[kernel] == expected,
@@ -650,12 +626,9 @@ def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
               f"{counts[kernel]} {kernel} launches (one per chunk), no "
               f"full-grid kernel, state and population {pop} == the "
               "single-device kernel run")
-        reset_launches(cs)
-        t0 = time.perf_counter()
-        coord.run(2000)
-        coord.engine.block_until_ready()
-        wall = time.perf_counter() - t0
-        timed = launches(cs)[kernel]
+        cs.reset_launch_counts()
+        wall = tick_seconds(coord, 2000)
+        timed = cs.launch_counts()[kernel]
         rate = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
         out[kernel] = {"launches": counts[kernel], "rate": rate}
         print(f"mesh main path timed ({spec}): 2000 generations in one tick, "
@@ -675,9 +648,9 @@ def mesh_phase(cs, card: str, dev, single: dict, single_rates: dict) -> dict:
         alone = Engine(cells, spec, topology=Topology.DEAD, backend="cuda",
                        device=dev)
         check(sharded.backend == "cuda", f"auto picked {sharded.backend}")
-        reset_launches(cs)
+        cs.reset_launch_counts()
         sharded.step(MAIN_GENERATIONS)
-        counts = launches(cs)
+        counts = cs.launch_counts()
         expected = math.ceil(MAIN_GENERATIONS / g)
         check(counts[kernel] == expected and all(
             v == 0 for k, v in counts.items() if k != kernel),
@@ -756,7 +729,7 @@ def elementary_phase(cs, card: str, dev, repo: str, cli_dir: str) -> dict:
     gen.manual_seed(11)
     start = bitpack.pack(seeds.bernoulli(gen, (h, wp * 32), 0.5))
     out = {}
-    reset_launches(cs)
+    cs.reset_launch_counts()
     for name, topology in [("W110", Topology.TORUS), ("W30", Topology.DEAD)]:
         rule = parse_elementary(name)
         multi_step_elementary(start, 8, rule=rule, topology=topology)  # warm
@@ -799,7 +772,7 @@ def elementary_phase(cs, card: str, dev, repo: str, cli_dir: str) -> dict:
           f"{out['sharded']:.4e} cell-updates/s (single device "
           f"{out['W110']:.4e}, ratio {out['sharded'] / out['W110']:.4f}); "
           f"== the single-device run  [{card}]")
-    counts = launches(cs)
+    counts = cs.launch_counts()
     check(all(v == 0 for v in counts.values()),
           f"the elementary paths launched a kernel of B1-B4: {counts}")
     del single, done, placed, start
@@ -844,10 +817,10 @@ def resume_phase(cs, card: str, single: dict, work: str) -> dict:
         g = getattr(cs, depth_attr)
         start, after, _ = single[spec]
         engine = Engine.from_packed(start, spec, device="cuda")
-        reset_launches(cs)
+        cs.reset_launch_counts()
         engine.step(half)
         engine.block_until_ready()
-        first = launches(cs)[kernel]
+        first = cs.launch_counts()[kernel]
         path = os.path.join(work, f"resume-{kernel}.npz")
         t0 = time.perf_counter()
         ckpt.save(engine, path)
@@ -860,9 +833,9 @@ def resume_phase(cs, card: str, single: dict, work: str) -> dict:
               and back.device.type == "cuda",
               f"{spec} resumed as {back.backend} on {back.device} at "
               f"generation {back.generation}")
-        reset_launches(cs)
+        cs.reset_launch_counts()
         back.step(MAIN_GENERATIONS - half)
-        second = launches(cs)[kernel]
+        second = cs.launch_counts()[kernel]
         expected = math.ceil(half / g)
         check(first == expected and second == expected,
               f"{spec} resume launched {kernel} {first} + {second} times, "
@@ -932,11 +905,11 @@ def sharded_v2_phase(cs, card: str, dev, single: dict, work: str) -> dict:
     back = Engine.from_packed(arr, meta["rule"],
                               topology=Topology(meta["topology"]), mesh=mesh)
     back.generation = meta["generation"]
-    reset_launches(cs)
+    cs.reset_launch_counts()
     back.step(MAIN_GENERATIONS - back.generation)
-    slab = launches(cs)["life_slab"]
-    check(slab > 0 and launches(cs)["life_packed"] == 0,
-          f"the resumed mesh run launched {launches(cs)}")
+    slab = cs.launch_counts()["life_slab"]
+    check(slab > 0 and cs.launch_counts()["life_packed"] == 0,
+          f"the resumed mesh run launched {cs.launch_counts()}")
     check(back.generation == MAIN_GENERATIONS
           and torch.equal(back.state, after),
           "the resumed mesh run differs from the single-device run")
@@ -1041,7 +1014,7 @@ def serve_phase(cs, card: str) -> dict:
             seen["cat"] += 1
         return cat(tensors, *args, **kwargs)
 
-    reset_launches(cs)
+    cs.reset_launch_counts()
     sessions = []   # (sid, spec, rng_seed, generations)
     for spec, count, first in families:
         for i in range(first, first + count):
@@ -1078,7 +1051,7 @@ def serve_phase(cs, card: str) -> dict:
     finally:
         cs._launch_lane, torch.cat = launch_lane, cat
     device_ms = start.elapsed_time(end)
-    counts = launches(cs)
+    counts = cs.launch_counts()
     # planned: per lane, the 8-generation dispatch and the 5 more the
     # 13-step sessions owe (the single session: one of 13), then 2000
     planned = [[8, 5], [8, 5], [13]]
@@ -1175,25 +1148,6 @@ BATCH_UNIVERSES = 64           # 1024^2 B3/S23 universes (LANE_SHAPE)
 BATCH_GENERATIONS = 2000
 
 
-def _tiled_run(make, n: int):
-    """(engine, seconds to build it, seconds to step it ``n`` generations,
-    peak bytes beyond what was allocated before) of ``make()``, each timed
-    region closed by a device sync."""
-    import torch
-
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine = make()
-    engine.block_until_ready()
-    t1 = time.perf_counter()
-    engine.step(n)
-    engine.block_until_ready()
-    t2 = time.perf_counter()
-    return engine, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() - base
-
-
 def tiled_phase(cs, card: str) -> dict:
     """Phase 3 for the activity-tiled engines (``ops/sparse.py``, ``memory/``;
     plain torch: no TPU kernel serves them, and they launch none of
@@ -1203,6 +1157,7 @@ def tiled_phase(cs, card: str) -> dict:
     paged serving of many mostly-empty sessions. Returns the records."""
     import torch
     from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.bench import config5
     from gameoflifewithactors_torch.memory import step_grids
     from gameoflifewithactors_torch.models import seeds
     from gameoflifewithactors_torch.obs.registry import MetricsRegistry
@@ -1213,40 +1168,32 @@ def tiled_phase(cs, card: str) -> dict:
     from gameoflifewithactors_torch.utils import checkpoint as ckpt
 
     out = {}
-    # -- config #5: a word-aligned Gosper gun at the centre of 65536^2 ------
+    # -- config #5: a word-aligned Gosper gun at the centre of 65536^2, timed
+    # by the bench's config5 module (one build, one n-generation step) ------
     side, n = CONFIG5_SIDE, CONFIG5_GENERATIONS
-    words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
-                                left_word=side // bitpack.WORD // 2)
+    words = config5.seed_words(side)
     finals = {}
-    for backend, opts, kernel in (
+    for backend, capacity, kernel in (
             ("sparse", None, None),
-            ("paged", {"capacity": CONFIG5_PAGED_CAPACITY}, None),
+            ("paged", CONFIG5_PAGED_CAPACITY, None),
             ("cuda", None, "life_packed")):
-        reset_launches(cs)
-        engine, build_s, wall, peak = _tiled_run(lambda: Engine.from_packed(
-            words, "B3/S23", topology=Topology.TORUS, backend=backend,
-            device="cuda", sparse_opts=opts), n)
-        counts = launches(cs)
+        cs.reset_launch_counts()
+        engine, rec = config5.build_and_step(
+            words, backend, n, topology="torus", capacity=capacity,
+            device="cuda")
+        counts = cs.launch_counts()
         check(all(v == 0 for k, v in counts.items() if k != kernel),
               f"config #5 on {backend} launched {counts}")
         state = engine._sparse
         if kernel is None:
-            counter = state if backend == "sparse" else state.pool
-            dispatches, syncs = counter.dispatches, counter.syncs
             check(engine.state.is_cuda and (state.padded.is_cuda),
                   f"config #5 {backend} state is not on the card")
-            capacity = state.capacity if backend == "sparse" else \
-                state.pool.capacity
         else:
             check(counts[kernel] == math.ceil(n / cs.DEFAULT_GENS_PER_CALL),
                   f"config #5 B1 launches {counts}")
-            dispatches, syncs, capacity = counts[kernel], 0, None
+            rec["dispatches_per_gen"] = counts[kernel] / n
         finals[backend] = engine.state.contiguous()
-        rec = {"gens_per_s": n / wall, "cell_updates": side * side * n / wall,
-               "active_tiles": engine.active_tiles(), "capacity": capacity,
-               "dispatches_per_gen": dispatches / n,
-               "syncs_per_gen": syncs / n, "peak_mib": peak / 2 ** 20,
-               "wall": wall, "build_s": build_s}
+        build_s, (wall,) = rec["build_s"], rec["repetition_seconds"]
         # after the timed run and its result: 64 more generations under the
         # profiler, for the card's share of a generation
         ops, busy = device_activity(engine, 64)
@@ -1260,11 +1207,12 @@ def tiled_phase(cs, card: str) -> dict:
         print(f"config #5 ({side}x{side} Gosper gun, TORUS, {n} generations) "
               f"on backend {backend!r}: built in {build_s:.4f} s, stepped in "
               f"{wall:.4f} s host clock incl. sync, {1e3 * wall / n:.5f} ms "
-              f"and {rec['gens_per_s']:.2f} gens/s, {rec['cell_updates']:.4e} "
-              f"nominal cell-updates/s; active tiles {rec['active_tiles']}, "
-              f"capacity {capacity}; {rec['dispatches_per_gen']:.4f} "
-              f"dispatches and {rec['syncs_per_gen']:.4f} host syncs per "
-              f"generation; {activity}; peak {rec['peak_mib']:.1f} MiB "
+              f"and {rec['value']:.2f} gens/s, "
+              f"{rec['nominal_cell_updates_per_sec']:.4e} nominal "
+              f"cell-updates/s; active tiles {rec['active_tiles']}, capacity "
+              f"{rec['capacity']}; {rec['dispatches_per_gen']:.4f} dispatches "
+              f"and {rec['host_syncs_per_gen']:.4f} host syncs per "
+              f"generation; {activity}; peak {rec['peak_card_mib']:.1f} MiB "
               f"beyond the start  [{card}]")
         del engine, state
     check(torch.equal(finals["sparse"], finals["cuda"])
@@ -1293,11 +1241,11 @@ def tiled_phase(cs, card: str) -> dict:
         results = {}
         for backend, opts in (("sparse", None), ("sparse", {"capacity": 8}),
                               ("cuda", None)):
-            reset_launches(cs)
-            engine, _, wall, _ = _tiled_run(lambda: Engine(
+            cs.reset_launch_counts()
+            engine, _, wall, _ = timed_run(lambda: Engine(
                 cells, spec, topology=topology, backend=backend,
                 sparse_opts=opts), gens)
-            counts = launches(cs)
+            counts = cs.launch_counts()
             want = {kernel: counts[kernel]} if backend == "cuda" else {}
             check(all(v == 0 for k, v in counts.items() if k not in want),
                   f"{spec} on {backend} launched {counts}")
@@ -1343,7 +1291,7 @@ def tiled_phase(cs, card: str) -> dict:
             "#paged"), f"paged service placed {info}")
         sessions.append([info["sid"], cells, 0])
     tile_pool = next(iter(svc._tile_pools.values()))
-    reset_launches(cs)
+    cs.reset_launch_counts()
     for k, sess in enumerate(sessions):
         sess[2] = 37 if k % 3 else 64
         svc.step(sess[0], sess[2], pump=False)
@@ -1357,7 +1305,7 @@ def tiled_phase(cs, card: str) -> dict:
     svc.pump()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launches(cs)
+    counts = cs.launch_counts()
     check(all(v == 0 for v in counts.values()),
           f"paged serving launched {counts}")
     chunks = tile_pool.dispatches - d0
@@ -1430,6 +1378,7 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
     plain-torch paths launch no kernel. Returns the records."""
     import torch
     from gameoflifewithactors_torch import Engine
+    from gameoflifewithactors_torch.bench import config5
     from gameoflifewithactors_torch import engine as engine_lib
     from gameoflifewithactors_torch.models import seeds
     from gameoflifewithactors_torch.models.rules import CONWAY
@@ -1462,11 +1411,11 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
         gen.manual_seed(side)
         cells = (torch.rand((side, side), generator=gen, device=dev)
                  < 0.5).to(torch.uint8)
-        reset_launches(cs)
+        cs.reset_launch_counts()
         truth_engine = Engine(cells, CONWAY, topology=topology,
                               backend="cuda", device=dev)
         truth_engine.step(n)
-        check(launches(cs)["life_packed"] > 0, "the B1 reference launched "
+        check(cs.launch_counts()["life_packed"] > 0, "the B1 reference launched "
               "no kernel")
         truth = truth_engine.state.contiguous()
         del truth_engine
@@ -1478,9 +1427,9 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
                         mesh=mesh, gens_per_exchange=g)
         check(engine._ghost_pipeline, f"{side}^2 on (2, 2) did not take the "
               "ghost pipeline")
-        reset_launches(cs)
+        cs.reset_launch_counts()
         _, wall = synced(lambda: engine.step(n))
-        plain_only(launches(cs), "the ghost pipeline")
+        plain_only(cs.launch_counts(), "the ghost pipeline")
         check(torch.equal(engine.state, truth),
               f"ghost {side}^2 {topo} differs from B1")
         exchanges = REGISTRY.counter("halo_exchanges_total").value() - exchanges0
@@ -1513,9 +1462,9 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
             deep, sharded.make_multi_step_packed(mesh, CONWAY, topology), g)
         state = device_put_sharded_grid(bitpack.pack(cells), mesh)
         moved0 = halo.exchanged_bytes()
-        reset_launches(cs)
+        cs.reset_launch_counts()
         state, wall = synced(lambda: run(state, n))
-        plain_only(launches(cs), "the deep runner")
+        plain_only(cs.launch_counts(), "the deep runner")
         moved = halo.exchanged_bytes() - moved0
         check(torch.equal(state.gather(), truth),
               f"deep {side}^2 {topo} differs from B1")
@@ -1541,13 +1490,12 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
 
     # -- sharded sparse: config #5, then the brain and bosco blobs ----------
     side, n = CONFIG5_SIDE, CONFIG5_GENERATIONS
-    words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
-                                left_word=side // bitpack.WORD // 2)
-    reset_launches(cs)
-    engine, build_s, wall, peak = _tiled_run(lambda: Engine.from_packed(
+    words = config5.seed_words(side)
+    cs.reset_launch_counts()
+    engine, build_s, wall, peak = timed_run(lambda: Engine.from_packed(
         words, "B3/S23", topology=Topology.TORUS, backend="sparse",
         mesh=mesh), n)
-    plain_only(launches(cs), "config #5 on the mesh")
+    plain_only(cs.launch_counts(), "config #5 on the mesh")
     stats = engine._runner.stats
     check(torch.equal(engine.state, config5_truth),
           "config #5 on the (2, 2) mesh differs from the sparse and B1 runs")
@@ -1584,16 +1532,16 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
             1, states, (512, 512))
         c = side // 2 - 256
         cells[c:c + 512, c:c + 512] = blob
-        reset_launches(cs)
+        cs.reset_launch_counts()
         truth = Engine(cells, spec, topology=topology, backend="cuda",
                        device=dev)
         truth.step(n)
-        check(launches(cs)[kernel] > 0, f"{spec} reference launched no "
+        check(cs.launch_counts()[kernel] > 0, f"{spec} reference launched no "
               f"{kernel}")
-        reset_launches(cs)
-        engine, _, wall, peak = _tiled_run(lambda: Engine(
+        cs.reset_launch_counts()
+        engine, _, wall, peak = timed_run(lambda: Engine(
             cells, spec, topology=topology, backend="sparse", mesh=mesh), n)
-        plain_only(launches(cs), f"{spec} on the mesh")
+        plain_only(cs.launch_counts(), f"{spec} on the mesh")
         check(torch.equal(engine.state, truth.state),
               f"{spec} {side}^2 on the (2, 2) mesh differs from {kernel}")
         stats = engine._runner.stats
@@ -1654,9 +1602,9 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
         cs._launch_slab, cs._launch_lane = counted_slab, counted_lane
         cs.slab_step_kernel = kept_slab
         try:
-            reset_launches(cs)
+            cs.reset_launch_counts()
             got, wall = synced(lambda: run(placed, chunks, mask))
-            counts = launches(cs)
+            counts = cs.launch_counts()
         finally:
             cs._launch_slab, cs._launch_lane = launch_slab, launch_lane
             cs.slab_step_kernel = slab_entry
@@ -1682,10 +1630,10 @@ def mesh_paths_phase(cs, card: str, dev, config5_truth) -> dict:
                         f"{topology.value} != slab_step_reference ({err})")
         worst = max(worst, err)
         del first[:], ext, result, want, code
-        reset_launches(cs)
+        cs.reset_launch_counts()
         lane, lane_wall = synced(lambda: batched.multi_step_kernel_batched(
             grids, BATCH_GENERATIONS, mask, rule=CONWAY, topology=topology))
-        lane_launches = launches(cs)["life_slab"]
+        lane_launches = cs.launch_counts()["life_slab"]
         check(torch.equal(got.gather(), lane),
               f"batch mesh {topology.value} differs from the lane form")
         check(torch.equal(lane[::4], grids[::4]),
@@ -1737,6 +1685,7 @@ def observe_phase(cs, card: str, main_rates: dict) -> dict:
 
     import torch
 
+    from gameoflifewithactors_torch.bench import roofline_report
     from gameoflifewithactors_torch.cli import main as cli_main
     from gameoflifewithactors_torch.config import from_args
     from gameoflifewithactors_torch.obs import flight, spans, watchdog
@@ -1753,12 +1702,12 @@ def observe_phase(cs, card: str, main_rates: dict) -> dict:
     # (a) telemetry on the three main paths, through the CLI in-process
     for kernel, spec, marker in OBSERVE_PATHS:
         path = os.path.join(work, f"{kernel}.json")
-        reset_launches(cs)
+        cs.reset_launch_counts()
         rc = cli_main(["--device", "cuda", "--rule", spec, "--grid", side,
                        "--seed", "random", "--rng-seed", "1", "--steps",
                        str(OBSERVE_GENERATIONS), "--telemetry-out", path,
                        "--profile-sample", "5"])
-        counts = launches(cs)
+        counts = cs.launch_counts()
         check(rc == 0, f"observed {spec} run exited {rc}")
         check(counts[kernel] > 0 and all(
             v == 0 for k, v in counts.items() if k != kernel),
@@ -1805,6 +1754,14 @@ def observe_phase(cs, card: str, main_rates: dict) -> dict:
                      "hbm_share": frac["of_hbm_bandwidth"],
                      "stencil": shares.get("stencil", 0), "duty": duty,
                      "gaps": gaps, "rate": rate, "ratio": ratio}
+        # the bench's roofline report over the same report: a device track
+        check(roofline_report.main([path, "--check"]) == 0,
+              f"roofline_report --check found no device track in the "
+              f"observed {spec} report")
+        with open(path) as f:
+            section = roofline_report.render_roofline(json.load(f), path)
+        print(f"roofline_report --check over the observed {spec} report: "
+              f"exit 0; its section:\n{section.rstrip()}")
     # what the session costs a tick: one B3/S23 coordinator, 2000-generation
     # ticks with a plain metrics logger (each syncs), under a RunTelemetry
     # session without the profiler (spans, watchdog, flight tape) and
@@ -1872,11 +1829,11 @@ def observe_phase(cs, card: str, main_rates: dict) -> dict:
 
     sup.before_chunk = before_chunk
     spans.TRACER.clear()
-    reset_launches(cs)
+    cs.reset_launch_counts()
     t0 = time.perf_counter()
     stats = sup.run(cfg.steps)
     wall = time.perf_counter() - t0
-    counts = launches(cs)
+    counts = cs.launch_counts()
     phases = spans.TRACER.phase_seconds()
     check(fired == ["corrupt_region"] and stats["restarts"] == 1
           and stats["restarts_by_cause"] == {"fault:corrupt_region": 1},
@@ -1990,9 +1947,9 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
     from gameoflifewithactors_torch import Engine
     from gameoflifewithactors_torch.aot import cache as aot_cache
     from gameoflifewithactors_torch.aot import registry as aot_registry
+    from gameoflifewithactors_torch.bench import warm_vs_cold
     from gameoflifewithactors_torch.models import seeds
     from gameoflifewithactors_torch.models.rules import CONWAY
-    from gameoflifewithactors_torch.obs.report import RunReport
     from gameoflifewithactors_torch.ops import bitpack
     from gameoflifewithactors_torch.ops.packed import multi_step_packed
 
@@ -2041,31 +1998,17 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
     print(f"warmup process (spawn to exit, {len(rows)} specs): {wall:.4f} s  "
           f"[{card}]")
 
-    # (2) time to first step through the CLI, cold and warm in turns
+    # (2) time to first step through the CLI, cold and warm in turns (the
+    # bench's warm_vs_cold.first_step)
     def first_step(root: str, label: str):
-        report = os.path.join(work, f"{label}.json")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "gameoflifewithactors_torch", "--grid",
-             side, "--seed", "random", "--rng-seed", "1", "--steps",
-             str(WARM_CLI_GENERATIONS), "--render-every",
-             str(WARM_CLI_GENERATIONS), "--metrics", "jsonl", "--cache-dir",
-             root, "--telemetry-out", report],
-            cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-            text=True)
-        first, lines = None, []
-        for line in proc.stderr:   # the tick's metrics record ends the tick
-            if first is None and line.startswith("{"):
-                first = time.perf_counter() - t0
-            lines.append(line)
-        rc = proc.wait(timeout=300)
-        check(rc == 0 and first is not None,
-              f"CLI on {label} exited {rc}: {''.join(lines)}")
-        rep = RunReport.load(report)
-        kinds = {}
-        for ev in rep.compile_events:
-            kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
-        return first, kinds, rep.compile_seconds_total
+        try:
+            return warm_vs_cold.first_step(
+                ["--grid", side, "--seed", "random", "--rng-seed", "1",
+                 "--steps", str(WARM_CLI_GENERATIONS), "--render-every",
+                 str(WARM_CLI_GENERATIONS)], root,
+                os.path.join(work, f"{label}.json"), cwd=repo)
+        except RuntimeError as exc:
+            check(False, str(exc))
 
     runs = []
     for label, root in [("cold", os.path.join(work, "D2")), ("warm", warm_root),
@@ -2096,10 +2039,10 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
         engine = Engine.from_packed(start, "B3/S23", backend="packed")
     check(engine.aot_loaded, "the packed 16384^2 engine was not served from "
                              "the registry warmup wrote")
-    reset_launches(cs)
+    cs.reset_launch_counts()
     engine.step(GRAPH_GENERATIONS)
     torch.cuda.synchronize()
-    counts = launches(cs)
+    counts = cs.launch_counts()
     check(not any(counts.values()),
           f"the registry-served engine launched {counts}")
     eager = multi_step_packed(start, GRAPH_GENERATIONS, rule=CONWAY)
@@ -2334,14 +2277,14 @@ def band_worker(rank: int, world: int, port: int, work: str) -> int:
         runner(start, 1)    # warm: the library's load, a first exchange
         torch.cuda.synchronize()
         dist.barrier()
-        reset_launches(cs)
+        cs.reset_launch_counts()
         moved, crossed = halo.exchanged_bytes(), halo.crossed_bytes()
         t0 = time.perf_counter()
         out = runner(start, run["generations"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats[run["name"]] = {
-            "launches": launches(cs), "wall": wall,
+            "launches": cs.launch_counts(), "wall": wall,
             "chunks": math.ceil(run["generations"] / getattr(cs, depth)),
             "exchanged": halo.exchanged_bytes() - moved,
             "crossed": halo.crossed_bytes() - crossed}
@@ -2663,6 +2606,7 @@ def analysis_phase(cs, card: str, dev, repo: str) -> dict:
     import torch
     from gameoflifewithactors_torch import Engine
     from gameoflifewithactors_torch.analysis import contracts, lint, sanitizers
+    from gameoflifewithactors_torch.bench import config5
     from gameoflifewithactors_torch.memory.paged import default_chunk_gens
     from gameoflifewithactors_torch.models import seeds
     from gameoflifewithactors_torch.models.generations import parse_any
@@ -2730,10 +2674,10 @@ def analysis_phase(cs, card: str, dev, repo: str) -> dict:
             for guarded in (True, False):
                 os.environ[sanitizers.ENV_SANITIZE] = "1" if guarded else "0"
                 engine = make()
-                reset_launches(cs)
+                cs.reset_launch_counts()
                 engine.step(n)
                 engine.block_until_ready()
-                counts = launches(cs)
+                counts = cs.launch_counts()
                 if guarded:
                     with sanitizers.no_implicit_host_transfers(dev):
                         engine.snapshot(max_shape=(40, 80))
@@ -2788,13 +2732,13 @@ def analysis_phase(cs, card: str, dev, repo: str) -> dict:
         lanes = {}
         for guarded in (True, False):
             os.environ[sanitizers.ENV_SANITIZE] = "1" if guarded else "0"
-            reset_launches(cs)
+            cs.reset_launch_counts()
             with sanitizers.no_implicit_host_transfers(dev):
                 lanes[guarded] = multi_step_kernel_batched(lane, n, mask,
                                                            rule=CONWAY)
             torch.cuda.synchronize()
-            check(launches(cs)["life_slab"] == math.ceil(n / g),
-                  f"the lane launched {launches(cs)}")
+            check(cs.launch_counts()["life_slab"] == math.ceil(n / g),
+                  f"the lane launched {cs.launch_counts()}")
         check(torch.equal(lanes[True], lanes[False]),
               "the lane: the guarded run differs from the unguarded one")
         print(f"analysis (a) B2 lane form, {LANE_SESSIONS} x "
@@ -2803,8 +2747,7 @@ def analysis_phase(cs, card: str, dev, repo: str) -> dict:
               f"{math.ceil(n / g)} life_slab launches")
         del lane, lanes
         side = CONFIG5_SIDE
-        words = seeds.seeded_packed((side, side), "gosper_gun", top=side // 2,
-                                    left_word=side // bitpack.WORD // 2)
+        words = config5.seed_words(side)
         paged_chunk = default_chunk_gens(CONWAY, sparse.DEFAULT_TILE_ROWS,
                                          sparse.DEFAULT_TILE_WORDS)
         for backend, opts, chunk in (
@@ -3201,9 +3144,9 @@ def examples_phase(cs, card: str, dev, repo: str) -> dict:
                 argv += ["--out", os.path.join(work, "card.json")]
             else:
                 argv_cpu = list(argv)
-            reset_launches(cs)
+            cs.reset_launch_counts()
             res, text, wall = _run_example(name, argv + ["--device", "cuda"])
-            counts = {k: v for k, v in launches(cs).items() if v}
+            counts = {k: v for k, v in cs.launch_counts().items() if v}
             twin, twin_text, twin_wall = _run_example(
                 name, argv_cpu + ["--device", "cpu"])
             # telemetry prints timings throughout: its fields are held below
@@ -3285,6 +3228,217 @@ def examples_phase(cs, card: str, dev, repo: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"examples phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+BENCH_GENERATIONS = 2000       # generations per timed repetition
+BENCH_REPEATS = 3
+BENCH_INPROCESS_REPEATS = 1    # the in-process run, profiled, against plain B1
+BENCH_PATHS = [  # (--rule, --backend, the kernel its timed ticks launch)
+    ("B3/S23", "auto", "life_packed"),
+    ("brain", "cuda", "life_generations"),
+    ("bosco", "cuda", "life_ltl")]
+WEAK_POSITIONS = 4             # weak scaling: 1, 2 and 4 positions on cuda:0
+WEAK_TILE = "4096x4096"
+
+
+def bench_phase(cs, card: str, repo: str, main_rates: dict) -> dict:
+    """The bench package on the card: (a) ``python -m
+    gameoflifewithactors_torch.bench`` in a subprocess on each 16384^2 main
+    path (B3/S23 on ``auto``, brain and Bosco on ``cuda``), each last line
+    parsed, its launches per repetition ``ceil(gens / g)``, its rate within
+    2x of phase 3's tick for the family; (b) the bench in this process on
+    the B3/S23 path, one repetition under the sampling profiler: its B1
+    launches counted, its final state held against ``multi_step_reference``
+    from the same numpy grid, its RunReport through ``roofline_report
+    --check`` with an in-kernel rate; (c) ``weak_scaling`` on 1, 2 and 4
+    positions of cuda:0 at a 4096^2 tile (repetitions sized by the tool),
+    the ``packed`` and ``band`` runners, every final grid held against B1
+    on the global grid; (d) the gate passing (a)'s and (b)'s B3/S23
+    records and failing a copy with the value halved; (e) the history
+    folded into a temporary file, and the store's scoreboard. Returns the
+    records."""
+    import torch
+
+    from gameoflifewithactors_torch.aot import cache as aot_cache
+    from gameoflifewithactors_torch.bench import gate, history, roofline_report
+    from gameoflifewithactors_torch.bench import run as bench_run
+    from gameoflifewithactors_torch.bench import weak_scaling
+    from gameoflifewithactors_torch.bench.timing import card_label
+    from gameoflifewithactors_torch.models.rules import CONWAY
+    from gameoflifewithactors_torch.ops import bitpack
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    store = os.path.join(work, "results", "cuda_best.json")
+    side = MAIN_SHAPE[0]
+    depth = {"life_packed": cs.DEFAULT_GENS_PER_CALL,
+             "life_generations": cs.DEFAULT_GENERATIONS_GENS_PER_CALL,
+             "life_ltl": cs.DEFAULT_LTL_GENS_PER_CALL}
+    env = dict(os.environ)    # the children load the kernels this run built
+    if aot_cache.cache_root() is not None:
+        env[aot_cache.ENV_CACHE_DIR] = aot_cache.cache_root()
+    out = {"launches": {}}
+
+    # (a) the bench's entry point on each main path
+    records = {}
+    report = os.path.join(work, "results", "bench_report.json")
+    for spec, backend, kernel in BENCH_PATHS:
+        argv = ["--rule", spec, "--backend", backend, "--size", str(side),
+                "--gens", str(BENCH_GENERATIONS), "--repeats",
+                str(BENCH_REPEATS), "--store", store]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gameoflifewithactors_torch.bench", *argv],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"bench --rule {spec} exited {proc.returncode}: {proc.stderr}")
+        line = proc.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        check({"metric", "value", "unit", "vs_baseline"} <= set(rec)
+              and rec["backend"] == "cuda" and rec["kernel"] == kernel
+              and rec["platform"] == "cuda" and rec["side"] == side,
+              f"bench --rule {spec} record: {line}")
+        per_rep = math.ceil(BENCH_GENERATIONS / depth[kernel])
+        reps = rec["repetitions"]
+        check(len(reps) == BENCH_REPEATS and all(
+            r["launches"] == per_rep and r["generations"] == BENCH_GENERATIONS
+            for r in reps), f"bench --rule {spec} repetitions {reps}")
+        ratio = rec["value"] / main_rates[spec]
+        check(0.5 <= ratio <= 2.0,
+              f"bench --rule {spec}: {rec['value']:.4e} cell-updates/s is not "
+              f"within 2x of phase 3's {main_rates[spec]:.4e}")
+        records[spec] = rec
+        out["launches"][kernel] = (
+            math.ceil(bench_run.WARMUP_GENERATIONS / depth[kernel])
+            + BENCH_REPEATS * per_rep)
+        print(f"bench last line ({spec}): {line}")
+        print(f"bench {side}x{side} {spec} --backend {backend} -> "
+              f"{rec['backend']} ({kernel}), {BENCH_REPEATS} repetitions of "
+              f"{BENCH_GENERATIONS} generations (seconds "
+              f"{[round(r['seconds'], 6) for r in reps]}, {per_rep} launches "
+              f"each): best {rec['value']:.4e}, median {rec['median']:.4e} "
+              f"cell-updates/s, spread {rec['spread']:.2%}; phase 3's tick "
+              f"{main_rates[spec]:.4e} (best / phase 3 {ratio:.4f}); process "
+              f"{wall:.2f} s  [{card_label(rec['device'])}]")
+    stored = bench_run.load_store(store)
+    check(len(stored) == len(BENCH_PATHS) and all(
+        r["ok"] for r in stored.values()), f"the bench store holds {stored}")
+    # (b) the bench in this process (one repetition, the sampling profiler
+    # open over it), held against the plain B1; its record into a store of
+    # its own with a pointer to its RunReport
+    args = bench_run.parse(
+        ["--size", str(side), "--gens", str(BENCH_GENERATIONS), "--repeats",
+         str(BENCH_INPROCESS_REPEATS), "--store", store, "--telemetry-out",
+         report, "--profile-sample", "5"])
+    cs.reset_launch_counts()
+    rec, coord = bench_run.run_bench(args)
+    counts = cs.launch_counts()
+    per_rep = math.ceil(BENCH_GENERATIONS / cs.DEFAULT_GENS_PER_CALL)
+    warm = math.ceil(bench_run.WARMUP_GENERATIONS / cs.DEFAULT_GENS_PER_CALL)
+    check(counts["life_packed"] == warm + BENCH_INPROCESS_REPEATS * per_rep
+          and all(v == 0 for k, v in counts.items() if k != "life_packed")
+          and all(r["launches"] == per_rep for r in rec["repetitions"]),
+          f"the in-process bench launched {counts}, repetitions "
+          f"{rec['repetitions']}")
+    total = bench_run.WARMUP_GENERATIONS \
+        + BENCH_INPROCESS_REPEATS * BENCH_GENERATIONS
+    start = bitpack.pack(torch.from_numpy(
+        bench_run.seed_grid("auto", CONWAY, side)).to("cuda"))
+    want = cs.multi_step_reference(start, total, rule=CONWAY)
+    err = max_abs_err(coord.engine.state, want)
+    check(err == 0, f"the in-process bench's state differs from the plain "
+                    f"B1 (max_abs_err {err})")
+    out["launches"]["life_packed"] += counts["life_packed"]
+    profiled = os.path.join(work, "profiled", "cuda_best.json")
+    check(bench_run.persist_if_best(profiled, bench_run.config_key(
+        args, "cuda"), rec, report) and bench_run.load_store(profiled)[
+            "cuda:auto:16384:B3/S23"].get("telemetry_report")
+          == os.path.join("results", "bench_report.json"),
+          "the profiled record does not point at its RunReport")
+    check(roofline_report.main([report, "--check"]) == 0,
+          "the bench's profiled RunReport has no device track")
+    with open(report) as f:
+        section = roofline_report.render_roofline(json.load(f), report)
+    check("In-kernel rate**: " in section and "rate**: not measured"
+          not in section, "the profiled repetition's device span is not "
+          f"its own: {section}")
+    print(f"bench in-process {side}x{side} B3/S23 auto -> {rec['backend']} "
+          f"under the profiler (--profile-sample 5): {counts['life_packed']} "
+          f"B1 launches ({warm} warm-up + {BENCH_INPROCESS_REPEATS} x "
+          f"{per_rep}), state after {total} generations == "
+          f"multi_step_reference from the same numpy grid (max_abs_err "
+          f"{err}); {rec['value']:.4e} cell-updates/s  "
+          f"[{card_label(rec['device'])}]; roofline_report --check over its "
+          f"RunReport: exit 0; its section:\n{section.rstrip()}")
+    del coord, start, want
+    base = os.path.join(work, "results", "b3s23_subprocess.json")
+    fresh = os.path.join(work, "results", "b3s23_in_process.json")
+    halved = os.path.join(work, "b3s23_halved.json")
+    for path, r in ((base, records["B3/S23"]), (fresh, rec),
+                    (halved, {**rec, "value": rec["value"] / 2})):
+        with open(path, "w") as f:
+            json.dump(r, f)
+
+    # (c) weak scaling over positions of cuda:0
+    out["weak"] = {}
+    for runner in ("packed", "band"):
+        ws_args = weak_scaling.parse(
+            ["--positions", str(WEAK_POSITIONS), "--tile", WEAK_TILE,
+             "--runner", runner, "--store", store])
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        ws = weak_scaling.run(ws_args)
+        wall = time.perf_counter() - t0
+        counts = cs.launch_counts()
+        slab = sum(math.ceil(f["generations"] / 8) for f in ws["finals"])
+        want_counts = {"life_slab": slab} if runner == "band" else {}
+        check(all(v == want_counts.get(k, 0) for k, v in counts.items()),
+              f"weak scaling {runner} launched {counts}, expected "
+              f"{want_counts}")
+        for fin in ws["finals"]:
+            truth = cs.multi_step_kernel(fin["start"], fin["generations"],
+                                         rule=CONWAY)
+            check(torch.equal(fin["final"], truth),
+                  f"weak scaling {runner} on {fin['devices']} positions "
+                  "differs from B1 on the global grid")
+        out["weak"][runner] = ws["series"]
+        print(f"weak scaling {runner}, {WEAK_TILE} per position on 1, 2, "
+              f"{WEAK_POSITIONS} positions of cuda:0 (every final grid == B1 "
+              f"on the global grid; launches {counts}; {wall:.2f} s): "
+              + "; ".join(
+                  f"{r['devices']} x {r['mesh']} {r['grid'][0]}x{r['grid'][1]} "
+                  f"{r['cell_updates_per_sec']:.4e} cell-updates/s, "
+                  f"efficiency {r['weak_scaling_efficiency']:.4f}, "
+                  f"cost_vs_single_chip {r.get('cost_vs_single_chip', 0):.4f}"
+                  f" (repetitions of " + ", ".join(
+                      f"{x['generations']} gens in {x['seconds']:.4f} s"
+                      for x in fin["repetitions"]) + ")"
+                  for r, fin in zip(ws["series"], ws["finals"]))
+              + f"  [{card_label(ws['device'])}]")
+        del ws
+    torch.cuda.empty_cache()
+
+    # (d) the gate, (e) the history and the scoreboard
+    rc_pair = gate.main([base, fresh])
+    rc_halved = gate.main([base, halved])
+    check(rc_pair == 0 and rc_halved == 1,
+          f"gate exits {rc_pair} on the pair (want 0), {rc_halved} on the "
+          "halved copy (want 1)")
+    hist = os.path.join(work, "history.jsonl")
+    rc_hist = history.main(["--repo", work, "--store", store, "--history",
+                            hist, "--record", report])
+    with open(hist) as f:
+        folded = sum(1 for _ in f)
+    check(rc_hist == 0 and folded >= len(BENCH_PATHS) + 3,
+          f"history exited {rc_hist}, folded {folded} entries")
+    bench_run.report(store)
+    shutil.rmtree(work)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"bench phase: gate 0 on the pair and 1 on the halved copy, "
+          f"history {folded} entries; launches {out['launches']}; "
+          f"{out['seconds']:.1f} s  [{card}]")
     return out
 
 
@@ -3533,9 +3687,9 @@ def main() -> int:
         start_state = coord.engine.state.clone()
         frames = []
         coord.subscribe(frames.append)
-        reset_launches(cs)
+        cs.reset_launch_counts()
         coord.run(MAIN_GENERATIONS, render_every=MAIN_TICK)
-        counts = launches(cs)
+        counts = cs.launch_counts()
         ticks = MAIN_GENERATIONS // MAIN_TICK
         expected = ticks * math.ceil(MAIN_TICK / g)
         check(counts[kernel] == expected,
@@ -3559,12 +3713,9 @@ def main() -> int:
               f"backend {coord.engine.backend}, {counts[kernel]} {kernel} "
               f"launches, population {pop} == plain version")
         single[spec] = (start_state, want, pop)
-        reset_launches(cs)
-        t0 = time.perf_counter()
-        coord.run(2000)
-        coord.engine.block_until_ready()
-        wall = time.perf_counter() - t0
-        timed = launches(cs)[kernel]
+        cs.reset_launch_counts()
+        wall = tick_seconds(coord, 2000)
+        timed = cs.launch_counts()[kernel]
         main_rates[kernel] = MAIN_SHAPE[0] * MAIN_SHAPE[1] * 2000 / wall
         main_rates[spec] = main_rates[kernel]
         if spec == "B3/S23":
@@ -3675,6 +3826,8 @@ def main() -> int:
     stamp("the fleet drills")
     examples_phase(cs, card, dev, repo)
     stamp("the examples")
+    bench_phase(cs, card, repo, main_rates)
+    stamp("the bench")
 
     # -- 4. timing at the main path's shape ------------------------------------
     # the card's peaks, read from the device (the roofline's denominators)

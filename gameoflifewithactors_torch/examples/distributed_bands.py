@@ -22,7 +22,8 @@ import time
 
 import numpy as np
 
-from . import add_device_flag, add_positions_flag, mesh_devices
+from ..parallel.mesh import add_positions_flag, mesh_devices
+from . import add_device_flag
 
 LAYOUTS = (  # (mesh shape: "2d" or "bands", backend, label)
     ("2d", "packed", "2D tiles / SWAR"),

@@ -24,7 +24,8 @@ import argparse
 
 import numpy as np
 
-from . import add_device_flag, add_positions_flag, mesh_devices
+from ..parallel.mesh import add_positions_flag, mesh_devices
+from . import add_device_flag
 
 
 def run(argv=None) -> dict:

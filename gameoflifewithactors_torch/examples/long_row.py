@@ -19,7 +19,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import add_device_flag, add_positions_flag, mesh_devices
+from ..parallel.mesh import add_positions_flag, mesh_devices
+from . import add_device_flag
 
 
 def run(argv=None) -> dict:

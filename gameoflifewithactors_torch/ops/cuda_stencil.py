@@ -50,7 +50,7 @@ tensor.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,8 +105,29 @@ LTL_LAUNCHES = 0                # B4, life_ltl, full grid
 SLAB_LAUNCHES = 0               # B2, life_slab, slab and lane forms
 GENERATIONS_SLAB_LAUNCHES = 0   # B3, life_generations, slab mode
 LTL_SLAB_LAUNCHES = 0           # B4, life_ltl, slab mode
+# each counter by the name of the kernel form it counts
+LAUNCH_COUNTERS = {"life_packed": "KERNEL_LAUNCHES",
+                   "life_slab": "SLAB_LAUNCHES",
+                   "life_generations": "GENERATIONS_LAUNCHES",
+                   "life_ltl": "LTL_LAUNCHES",
+                   "life_generations_slab": "GENERATIONS_SLAB_LAUNCHES",
+                   "life_ltl_slab": "LTL_SLAB_LAUNCHES"}
 
 _libs: dict = {}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel form's launches so far, by its name in
+    ``LAUNCH_COUNTERS``."""
+    counts = globals()
+    return {name: counts[c] for name, c in LAUNCH_COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every launch counter to 0."""
+    counts = globals()
+    for c in LAUNCH_COUNTERS.values():
+        counts[c] = 0
 
 
 def _launch_plan(n: int, g: int) -> List[int]:

@@ -43,6 +43,7 @@ process's devices one slice.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import warnings
 from typing import List, Optional, Sequence, Tuple
@@ -236,6 +237,32 @@ def _normalise(device) -> torch.device:
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+def add_positions_flag(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--positions", type=int, default=None, metavar="N",
+                    help="mesh positions, every one on --device (default: "
+                         "every device of --device's type); the counterpart "
+                         "of the JAX rig's "
+                         "--xla_force_host_platform_device_count")
+
+
+def mesh_devices(device: str, positions: Optional[int]) -> List[torch.device]:
+    """The devices a mesh demo or the weak-scaling sweep spreads over:
+    ``positions`` times ``device``, or every device of its type (every
+    CUDA device, or the one CPU), as ``config.build_mesh`` takes them.
+    Raises without a card when ``device`` is ``"cuda"``."""
+    from ..engine import resolve_device
+
+    dev = resolve_device(device)
+    if positions is not None:
+        if positions < 1:
+            raise ValueError(f"--positions must be >= 1, got {positions}")
+        return [dev] * positions
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,

@@ -14,9 +14,10 @@ measured paths changed since that stamp.
 - New records carry a ``measured_paths`` field stamped at capture time
   (:func:`head_stamp`), which :func:`staleness` prefers over the in-code
   map.
-- The timing protocol (``chip_smoke.py``, which measures every figure
-  until a bench module exists) is part of each measured set: an edit to
-  it flags the records it produced, not just kernel edits.
+- The timing protocol (the bench's ``bench/run.py`` and
+  ``bench/timing.py``) is part of each backend's measured set, and the
+  whole bench package of the conservative superset: an edit to it flags
+  the records it produced, not just kernel edits.
 
 *Comment-only* edits do not stale: when git reports a measured ``.py``
 file changed, :func:`staleness` compares the token stream (comments and
@@ -47,24 +48,26 @@ _RULES = [f"{_PKG}/models/rules.py", f"{_PKG}/models/generations.py",
           f"{_PKG}/models/ltl.py"]
 _MESHY = [f"{_PKG}/parallel/sharded.py", f"{_PKG}/parallel/halo.py",
           f"{_PKG}/parallel/mesh.py"]
-_PROTOCOL = "chip_smoke.py"
+_PROTOCOL = f"{_PKG}/bench"
+# the files of the protocol every bench record was timed by
+_TIMING = [f"{_PROTOCOL}/run.py", f"{_PROTOCOL}/timing.py"]
 
 # The measured code path per engine backend: if any of these files
 # changed after a record's commit stamp, the record describes a
 # predecessor and must be flagged.
 BACKEND_PATHS = {
     "cuda": [f"{_PKG}/ops/cuda_stencil.py", f"{_PKG}/csrc", f"{_PKG}/_build.py",
-             *_CORE, *_RULES, *_MESHY, _PROTOCOL],
+             *_CORE, *_RULES, *_MESHY, *_TIMING],
     "packed": [f"{_PKG}/ops/packed.py", f"{_PKG}/ops/packed_generations.py",
                f"{_PKG}/ops/packed_ltl.py", *_CORE, *_RULES, *_MESHY,
-               _PROTOCOL],
+               *_TIMING],
     "dense": [f"{_PKG}/ops/generations.py", f"{_PKG}/ops/ltl.py",
-              *_CORE, *_RULES, *_MESHY, _PROTOCOL],
+              *_CORE, *_RULES, *_MESHY, *_TIMING],
     "sparse": [f"{_PKG}/ops/sparse.py", f"{_PKG}/ops/packed.py",
                *_CORE, *_RULES, *_MESHY, f"{_PKG}/models/seeds.py",
-               _PROTOCOL],
+               *_TIMING],
     "paged": [f"{_PKG}/memory", f"{_PKG}/ops/sparse.py",
-              f"{_PKG}/ops/packed.py", *_CORE, *_RULES, _PROTOCOL],
+              f"{_PKG}/ops/packed.py", *_CORE, *_RULES, *_TIMING],
 }
 # Fallback when the backend can't be parsed out of a record: everything.
 ALL_OPS_PATHS = [f"{_PKG}/ops", f"{_PKG}/csrc", f"{_PKG}/parallel",

@@ -63,7 +63,10 @@ for name in ("models.generations", "models.ltl", "ops.generations", "ops.ltl",
              "examples.checkpoint_resume", "examples.sparse_gun",
              "examples.ensemble", "examples.telemetry",
              "examples.unbounded_glider", "examples.long_row",
-             "examples.fault_recovery", "examples.distributed_bands"):
+             "examples.fault_recovery", "examples.distributed_bands",
+             "bench", "bench.timing", "bench.run", "bench.config5",
+             "bench.weak_scaling", "bench.warm_vs_cold", "bench.gate",
+             "bench.history", "bench.roofline_report"):
     assert pkg.__name__ + "." + name in sys.modules, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
