@@ -19,7 +19,15 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    and on a tile that divides neither axis; B4 and its slab form at every radius
    1..7, box and diamond, M0 and M1, at g in {1, 2, 4}; the slab forms of
    B3 and B4 on batches of 1, 4 and 8 bands, b = 2..8 planes, and a
-   4-band 16384² batch each.
+   4-band 16384² batch each. Then the rule sweep (``rule_sweep_phase``):
+   rules drawn from a printed seed through every kernel form at small
+   drawn shapes, depths, tiles, edge codes and masks -- B1 over 208 B/S
+   rules under both topologies, B2's slab and lane forms, B3 and its slab
+   form over 112 Generations rules, B4 and its slab form over 112 binary
+   LtL rules -- each case bit for bit against the plain version, each
+   case that ``supported*`` refuses raising ValueError in the wrapper; and
+   one drawn rule per family through ``GridCoordinator`` at 16384²
+   (``python3 chip_smoke.py --rule-sweep SEED`` runs the sweep alone).
 3. The main paths, each driven with every kernel's launch count set to 0
    just before and read just after: three ``GridCoordinator`` runs at
    16384² with a 50% random soup under TORUS, held against the kernel's
@@ -83,8 +91,8 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    an empty root (B1, B3, B4 and B2's lane form each a ``cache_miss``
    with nvcc seconds, the ``packed`` spec's registry record written);
    the CLI at 16384² B3/S23 from spawn to the end of its first
-   2000-generation tick on empty roots and on the warmed one (no build),
-   in turns; the registry-served ``Engine(backend="packed")`` (CUDA
+   2000-generation tick on an empty root and on the warmed one (no
+   build); the registry-served ``Engine(backend="packed")`` (CUDA
    graphs of the plain loop) equal to the eager runner and to B1 after
    200 generations, launching no kernel, its ms per generation against
    the eager runner at 16384² and 1024²; ``serve --manifest`` on the
@@ -111,7 +119,7 @@ Phases, each unguarded (any failure exits non-zero before the last line):
    of the port tree; B1's ms per generation with the guard and without.
    The fleet drills (``drills_phase``, ``gameoflifewithactors_torch.drills``
    called at card sizes, every drill process under ``GOLTPU_SANITIZE=1``):
-   ``serve_load`` over 200 sessions of 1024^2-class grids (B2's lane form)
+   ``serve_load`` over 100 sessions of 1024^2-class grids (B2's lane form)
    with a SIGKILL and ``--resume`` of the server; ``soak``, a worker per
    flavor at 1024^2-4096^2 and an unfaulted twin each under the seeded
    fault plan, one SIGKILLed and resumed, the packed worker also equal to
@@ -352,7 +360,8 @@ def seed_cells(shape, seed: int, fill: float = 0.35) -> np.ndarray:
 
 def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
     """Phase 2 for B2: ``slab_step_kernel`` against ``slab_step_reference``
-    on batches of 1, 8 and 256 bands up to 16384 rows, every edge code and
+    on batches of 1, 8 and 256 bands up to 16384 rows, the edge codes 0,
+    3 and one per band (1, 0.., 2; the rule sweep draws every code) and
     g in {1, 3, 8, 16}, the batch mesh's 128 bands with their per-band
     codes, then a glider crossing a word seam through the lane runner.
     Returns the largest error (0)."""
@@ -382,7 +391,9 @@ def check_slab_kernel(cs, bitpack, seeds, rules, rng, CONWAY, Topology) -> int:
         ext = words(shape)
         for rule in rules:
             for topology in Topology:
-                for code in [0, 1, 2, 3, mesh_codes(shape[0], rng.device)]:
+                # codes 1 and 2 come with the per-band ones (the top and
+                # bottom bands); the rule sweep draws every code
+                for code in [0, 3, mesh_codes(shape[0], rng.device)]:
                     for g in (1, 3, 8, 16):
                         hold(ext, g, rule, topology, code)
     # the serving shapes: lanes of 1024^2 sessions (g = 8 and the 13-step
@@ -435,8 +446,9 @@ def check_lane_kernel(cs, rng, parse_rule, Topology) -> int:
     """Phase 2 for B2's lane form: one launch of ``multi_step_lane_kernel``
     against ``lane_step_reference`` (the row exchange, the slab form's
     plain version, the crop and the select) on lanes whose rows fit one
-    warp and lanes that do not, a rule on each rule path, every depth up to 32 that
-    the grids take, with a mask that freezes slots (each frozen slot
+    warp and lanes that do not, a rule on each rule path, g in {1, 8, 32}
+    where the grids take it (the rule sweep draws the other depths), with
+    a mask that freezes slots (each frozen slot
     bit-identical to its input), then the serving lanes at their shapes.
     Returns the largest error (0)."""
     import torch
@@ -470,7 +482,7 @@ def check_lane_kernel(cs, rng, parse_rule, Topology) -> int:
         for name in PACKED_RULES.values():
             rule = parse_rule(name)
             for topology in Topology:
-                for g in (1, 3, 8, 16, 32):
+                for g in (1, 8, 32):         # the rule sweep draws the rest
                     if g <= shape[1]:
                         hold(grids, g, rule, topology, mask if g != 8 else None)
     # the serving lanes: 1024^2 sessions at g = 8 and the 13-step
@@ -490,8 +502,9 @@ def check_lane_kernel(cs, rng, parse_rule, Topology) -> int:
 
 def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
     """Phase 2 for the slab forms of B3 and B4 against their plain
-    versions: batches of 1, 4 and 8 bands with one code per batch (0, 3)
-    and one per band, B3 at b = 2..8 planes, both rule paths and g in {1,
+    versions: batches of 1, 4 and 8 bands with one code per batch (0) and
+    one per band (a batch of one band: 3; the rule sweep draws the other
+    codes), B3 at b = 2..8 planes, both rule paths and g in {1,
     3, 16, 32}, B4 on
     named rules and at every radius 1..7, box and diamond, M0 and M1
     (:func:`ltl_every_form`, on 4 bands), at g in {1, 2, 4}; then a 4-band
@@ -526,7 +539,7 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
             for g in (1, 3, 16, 32):
                 ext = words((batch, b, rows + 2 * g, wp))
                 for topology in Topology:
-                    for code in (0, 3, mesh_codes(batch, rng.device)):
+                    for code in (0, mesh_codes(batch, rng.device)):
                         hold(*gen, ext, g, rule, topology, code)
     named = [(parse_any(name), [(1, 40, 3), (4, 72, 5), (8, 130, 33)])
              for name in ["R1,C0,M1,S2..3,B3..3", "R2,C0,M1,S9..16,B8..12",
@@ -537,7 +550,7 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
             for g in (1, 2, 4):
                 ext = words((batch, rows + 2 * rule.radius * g, wp))
                 for topology in Topology:
-                    for code in (0, 3, mesh_codes(batch, rng.device)):
+                    for code in (0, mesh_codes(batch, rng.device)):
                         hold(*ltl, ext, g, rule, topology, code)
     # the mesh main path's batches: four bands of a 16384^2 grid
     wp = MAIN_SHAPE[1] // 32
@@ -563,6 +576,412 @@ def check_slab_forms(cs, rng, Topology, parse_any, n_planes) -> dict:
         print(f"{name} kernel vs plain: {cases[name]} cases bit-identical "
               f"(tolerance 0), max_abs_err {worst[name]}")
     return worst
+
+
+# -- the rule sweep: drawn rules through every kernel form --------------------
+
+RULE_SWEEP_SEED = 18           # printed; `chip_smoke.py --rule-sweep SEED` re-runs it
+SWEEP_BS_RULES = 208           # B1, each under TORUS and DEAD
+SWEEP_GEN_RULES = 112          # B3, each on the full grid and in a slab
+SWEEP_LTL_RULES = 112          # B4, each on the full grid and in a slab
+SWEEP_SLAB_CASES = 96          # B2's slab form
+SWEEP_LANE_CASES = 96          # B2's lane form
+SWEEP_MAX_ROWS = 255           # odd heights up to 255 rows ...
+SWEEP_MAX_WORDS = 16           # ... and widths up to 512 cells
+SWEEP_TICK = 64                # the 16384^2 tick of each family's drawn rule
+SWEEP_FORMS = ("life_packed", "life_slab", "life_slab_lane",
+               "life_generations", "life_generations_slab", "life_ltl",
+               "life_ltl_slab")
+
+
+def _mask_set(mask: int) -> frozenset:
+    return frozenset(n for n in range(9) if (mask >> n) & 1)
+
+
+def _draw_count_sets(rng):
+    """(born, survive) over counts 0..8: half the draws name 1..4 counts in
+    1..7 between them (the kernels' equality paths), half are any two sets
+    (mostly the table; B0 and count 8 in about half)."""
+    if rng.random() < 0.5:
+        born = survive = 0
+        for count in rng.choice(np.arange(1, 8), size=int(rng.integers(1, 5)),
+                                replace=False):
+            kind = int(rng.integers(1, 4))      # 1 born, 2 survive, 3 both
+            born |= (kind & 1) << int(count)
+            survive |= (kind >> 1) << int(count)
+        return _mask_set(born), _mask_set(survive)
+    born, survive = (int(m) for m in rng.integers(0, 512, size=2))
+    return _mask_set(born), _mask_set(survive)
+
+
+def _draw_intervals(rng, window: int, past: bool):
+    """Sorted disjoint non-adjacent intervals in 0..window: k of them, k in
+    1..16 (at most MAX_LTL_BOUNDS boundaries; one interval in about half
+    the draws, the full 16 now and then) or, with ``past``, 17..24 (past
+    what the kernel takes). Drawn as their 2k boundaries lo, hi + 1:
+    distinct values in 0..window + 1."""
+    top = (window + 2) // 2
+    if past:
+        k = int(rng.integers(17, min(24, top) + 1))
+    else:
+        k = 1 if rng.random() < 0.5 else int(rng.integers(1, min(16, top) + 1))
+        if rng.random() < 0.1:
+            k = min(16, top)
+    bounds = np.sort(rng.choice(window + 2, size=2 * k, replace=False))
+    return tuple((int(bounds[2 * i]), int(bounds[2 * i + 1]) - 1)
+                 for i in range(k))
+
+
+def _draw_ltl_rule(rng):
+    """A binary LtL rule: radius 1..7, box or diamond, M0 or M1, HROT
+    interval lists within the kernel's boundary count or (about one rule
+    in five, where the window holds 17 intervals) past it in one set."""
+    from gameoflifewithactors_torch.models.ltl import LtLRule
+
+    r = int(rng.integers(1, 8))
+    hood = "M" if rng.random() < 0.5 else "N"
+    window = (2 * r + 1) ** 2 if hood == "M" else 2 * r * (r + 1) + 1
+    past = window >= 32 and rng.random() < 0.2
+    which = int(rng.integers(2))            # the set that goes past
+    return LtLRule(radius=r, neighborhood=hood, middle=bool(rng.integers(2)),
+                   born=_draw_intervals(rng, window, past and which == 0),
+                   survive=_draw_intervals(rng, window, past and which == 1))
+
+
+def _draw_shape(rng):
+    """(H, Wp): an odd height up to SWEEP_MAX_ROWS, 1..SWEEP_MAX_WORDS words."""
+    return (int(rng.integers(0, SWEEP_MAX_ROWS // 2 + 1)) * 2 + 1,
+            int(rng.integers(1, SWEEP_MAX_WORDS + 1)))
+
+
+def _draw_tile(rng, wp: int, rows=(4, 65)):
+    """None (the wrapper's own) or a tile whose width makes the row 1..3
+    tiles wide."""
+    if rng.random() < 0.35:
+        return None
+    return (int(rng.integers(*rows)), int(rng.integers(-(-wp // 3), wp + 1)))
+
+
+def _draw_depth(rng, most: int) -> int:
+    """Generations per launch, 1..most, the small ones likelier."""
+    return int(min(most, rng.geometric(3.0 / most)))
+
+
+def _draw_n(rng, g: int) -> int:
+    """Generations to run at ``g`` per launch: a full launch and a shorter
+    one (``n % g`` > 0 wherever g > 1)."""
+    return g + (int(rng.integers(1, g)) if g > 1 else 1)
+
+
+def _draw_code(rng, batch: int):
+    """One edge code for the batch (an int 0..3) or one per band."""
+    if rng.random() < 0.5:
+        return int(rng.integers(0, 4))
+    return [int(c) for c in rng.integers(0, 4, size=batch)]
+
+
+def draw_rule_sweep(seed: int) -> dict:
+    """The sweep's cases for every kernel form, from one numpy generator:
+    form -> a list of dicts (``rule``, ``shape`` of the words, ``topology``,
+    ``g`` the depth per launch, ``n`` generations (a slab form: one launch
+    of ``g``), ``tile``, ``code`` / ``mask``, ``data`` the seed of the
+    words). Drawing needs no card."""
+    from gameoflifewithactors_torch.models.generations import GenRule
+    from gameoflifewithactors_torch.models.rules import Rule
+    from gameoflifewithactors_torch.ops.stencil import Topology
+
+    rng = np.random.default_rng(seed)
+    topologies = list(Topology)
+
+    def topology():
+        return topologies[int(rng.integers(2))]
+
+    def data():
+        return int(rng.integers(2 ** 63))
+
+    draws = {form: [] for form in SWEEP_FORMS}
+    bs_rules, seen = [], set()
+    while len(bs_rules) < SWEEP_BS_RULES:
+        born, survive = _draw_count_sets(rng)
+        if (born, survive) not in seen:
+            seen.add((born, survive))
+            bs_rules.append(Rule(born=born, survive=survive))
+    for rule in bs_rules:
+        shape = _draw_shape(rng)
+        g = _draw_depth(rng, 32)
+        tile = _draw_tile(rng, shape[1])
+        n = _draw_n(rng, g)
+        for top in topologies:
+            draws["life_packed"].append(dict(
+                rule=rule, shape=shape, topology=top, g=g, n=n, tile=tile,
+                data=data()))
+    for _ in range(SWEEP_SLAB_CASES):
+        rule = bs_rules[int(rng.integers(len(bs_rules)))]
+        batch = int(rng.integers(1, 5))
+        rows, wp = _draw_shape(rng)
+        g = _draw_depth(rng, 32)
+        draws["life_slab"].append(dict(
+            rule=rule, shape=(batch, rows + 2 * g, wp), topology=topology(),
+            g=g, n=g, tile=_draw_tile(rng, wp), code=_draw_code(rng, batch),
+            data=data()))
+    for _ in range(SWEEP_LANE_CASES):
+        rule = bs_rules[int(rng.integers(len(bs_rules)))]
+        batch = int(rng.integers(1, 7))
+        h, wp = _draw_shape(rng)
+        if rng.random() < 0.3:              # short grids: a deeper g is refused
+            h = int(rng.integers(0, 5)) * 2 + 1
+        shape = (batch, h, wp)
+        g = _draw_depth(rng, 32)
+        mask = None if rng.random() < 0.3 else \
+            [int(m) for m in rng.integers(0, 2, size=batch)]
+        draws["life_slab_lane"].append(dict(
+            rule=rule, shape=shape, topology=topology(), g=g,
+            n=_draw_n(rng, g), tile=_draw_tile(rng, shape[2]), mask=mask,
+            data=data()))
+    seen = set()
+    while len(seen) < SWEEP_GEN_RULES:
+        b = int(rng.integers(2, 9))
+        born, survive = _draw_count_sets(rng)
+        rule = GenRule(born=born, survive=survive, states=int(
+            rng.integers(2 ** (b - 1) + 1, 2 ** b + 1)))
+        if rule in seen:
+            continue
+        seen.add(rule)
+        h, wp = _draw_shape(rng)
+        g = _draw_depth(rng, 32)
+        draws["life_generations"].append(dict(
+            rule=rule, shape=(b, h, wp), topology=topology(), g=g,
+            n=_draw_n(rng, g), tile=_draw_tile(rng, wp), data=data()))
+        batch = int(rng.integers(1, 5))
+        rows, wp = _draw_shape(rng)
+        g = _draw_depth(rng, 32)
+        draws["life_generations_slab"].append(dict(
+            rule=rule, shape=(batch, b, rows + 2 * g, wp), topology=topology(),
+            g=g, n=g, tile=_draw_tile(rng, wp), code=_draw_code(rng, batch),
+            data=data()))
+    seen = set()
+    while len(seen) < SWEEP_LTL_RULES:
+        rule = _draw_ltl_rule(rng)
+        if rule in seen:
+            continue
+        seen.add(rule)
+        shape = _draw_shape(rng)
+        g = _draw_depth(rng, 8)
+        draws["life_ltl"].append(dict(
+            rule=rule, shape=shape, topology=topology(), g=g,
+            n=_draw_n(rng, g), tile=_draw_tile(rng, shape[1]), data=data()))
+        batch = int(rng.integers(1, 5))
+        rows, wp = _draw_shape(rng)
+        g = _draw_depth(rng, 8)
+        draws["life_ltl_slab"].append(dict(
+            rule=rule, shape=(batch, rows + 2 * rule.radius * g, wp),
+            topology=topology(), g=g, n=g, tile=_draw_tile(rng, wp),
+            code=_draw_code(rng, batch), data=data()))
+    return draws
+
+
+def sweep_input(case: dict, device):
+    """The words of a drawn case on ``device``, from its ``data`` seed:
+    uniform random words, or (a Generations form) cells uniform in 0..C-1
+    packed as the rule's plane stack."""
+    import torch
+    from gameoflifewithactors_torch.models.generations import GenRule
+    from gameoflifewithactors_torch.ops.packed_generations import \
+        pack_generations_for
+    from gameoflifewithactors_torch.utils.interop import state_from_numpy
+
+    rng = np.random.default_rng(case["data"])
+    rule, shape = case["rule"], case["shape"]
+    if not isinstance(rule, GenRule):
+        words = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+        return torch.from_numpy(words.view(np.int32).copy()).to(device)
+    *lead, b, h, wp = shape
+    stacks = []
+    for _ in range(int(np.prod(lead, dtype=int))):
+        cells = rng.integers(0, rule.states, size=(h, wp * 32), dtype=np.uint8)
+        stacks.append(pack_generations_for(
+            torch.from_numpy(cells).to(device), rule))
+    return stacks[0] if not lead else torch.stack(stacks).contiguous()
+
+
+def sweep_calls(cs, form: str, case: dict, x):
+    """(supported, the kernel's call, its plain version's call) of a drawn
+    case: ``supported`` is what the ``supported*`` function of the form
+    says of the case, with the wrapper's own arguments."""
+    import torch
+
+    rule, top, g, n, tile = (case[k] for k in ("rule", "topology", "g", "n",
+                                               "tile"))
+    code = case.get("code")
+    if isinstance(code, list):
+        code = torch.tensor(code, dtype=torch.int32, device=x.device)
+    if form == "life_packed":
+        return (cs.supported(x.shape, tile=tile),
+                lambda: cs.multi_step_kernel(x, n, rule=rule, topology=top,
+                                             gens_per_call=g, tile=tile),
+                lambda: cs.multi_step_reference(x, n, rule=rule, topology=top,
+                                                gens_per_call=g, tile=tile))
+    if form == "life_generations":
+        return (cs.supported_generations(x.shape[1:], x.shape[0], tile=tile,
+                                         gens_per_call=g),
+                lambda: cs.multi_step_generations_kernel(
+                    x, n, rule=rule, topology=top, gens_per_call=g, tile=tile),
+                lambda: cs.multi_step_generations_reference(
+                    x, n, rule=rule, topology=top, gens_per_call=g, tile=tile))
+    if form == "life_ltl":
+        return (cs.supported_ltl(x.shape, rule, tile=tile, gens_per_call=g),
+                lambda: cs.multi_step_ltl_kernel(
+                    x, n, rule=rule, topology=top, gens_per_call=g, tile=tile),
+                lambda: cs.multi_step_ltl_reference(
+                    x, n, rule=rule, topology=top, gens_per_call=g, tile=tile))
+    if form == "life_slab_lane":
+        mask = case["mask"]
+
+        def plain():
+            out = x
+            for gens in cs._launch_plan(n, g):
+                out = cs.lane_step_reference(out, gens, rule=rule,
+                                             topology=top, mask=mask)
+            return out
+
+        return (cs.supported_lane(x.shape[1:], g, batch=x.shape[0], tile=tile),
+                lambda: cs.multi_step_lane_kernel(
+                    x, n, mask, rule=rule, topology=top, gens_per_call=g,
+                    tile=tile), plain)
+    slab = {"life_slab": (cs.supported_slab, cs.slab_step_kernel,
+                          cs.slab_step_reference),
+            "life_generations_slab": (cs.supported_generations_slab,
+                                      cs.slab_step_generations_kernel,
+                                      cs.slab_step_generations_reference),
+            "life_ltl_slab": (cs.supported_ltl_slab, cs.slab_step_ltl_kernel,
+                              cs.slab_step_ltl_reference)}[form]
+    supported, kernel, reference = slab
+    if form == "life_slab":
+        ok = supported(x.shape[1:], g, batch=x.shape[0], tile=tile)
+    elif form == "life_generations_slab":
+        ok = supported(x.shape[2:], x.shape[1], g, batch=x.shape[0], tile=tile)
+    else:
+        ok = supported(x.shape[1:], rule, g, batch=x.shape[0], tile=tile)
+    kw = dict(rule=rule, topology=top, edge_code=code, tile=tile)
+    return ok, lambda: kernel(x, g, **kw), lambda: reference(x, g, **kw)
+
+
+def _first_difference(got, want) -> str:
+    """The first word where two results differ, as index and uint32 hex."""
+    at = tuple(int(i) for i in (got != want).nonzero()[0])
+    return (f"first differing word at {at}: kernel "
+            f"{int(got[at]) & 0xFFFFFFFF:#010x}, plain "
+            f"{int(want[at]) & 0xFFFFFFFF:#010x}")
+
+
+def rule_sweep_phase(cs, card: str, dev, seed: int = RULE_SWEEP_SEED) -> dict:
+    """Drawn rules through every kernel form against its plain version at
+    tolerance 0 (the cases of :func:`draw_rule_sweep` from ``seed``): B1
+    over 208 B/S rules under TORUS and DEAD, B2's slab form with per-band
+    edge codes, its lane form with a drawn mask, B3 and its slab form over
+    112 Generations rules (b = 2..8), B4 and its slab form over 112 binary
+    LtL rules (radius 1..7, box and diamond, M0 and M1, HROT lists within
+    and past the kernel's boundary count). A case that ``supported*``
+    refuses must make the wrapper raise ValueError and is not stepped;
+    a mismatch prints the case and fails the run. Then one drawn rule per
+    family through ``GridCoordinator`` at 16384^2 TORUS (``backend="cuda"``,
+    one tick of 64 generations): ``ceil(64/g)`` launches of its kernel and
+    a state equal to the plain version's. Returns each form's counts."""
+    import torch
+
+    from gameoflifewithactors_torch import GridCoordinator
+
+    t_phase = time.perf_counter()
+    print(f"rule sweep: seed {seed} (numpy default_rng; re-run with "
+          f"`python3 chip_smoke.py --rule-sweep {seed}`)")
+    draws = draw_rule_sweep(seed)
+    out = {}
+    for form, cases in draws.items():
+        t0 = time.perf_counter()
+        refused = 0
+        for i, case in enumerate(cases):
+            x = sweep_input(case, dev)
+            ok, kernel, plain = sweep_calls(cs, form, case, x)
+            where = (f"{form} case {i} of seed {seed}: {case['rule']} words "
+                     f"{tuple(x.shape)} {case['topology'].value} g={case['g']} "
+                     f"n={case['n']} tile={case['tile']} code="
+                     f"{case.get('code')} mask={case.get('mask')}")
+            if not ok:
+                try:
+                    kernel()
+                except ValueError:
+                    refused += 1
+                    continue
+                check(False, f"{where}: supported* refuses it, the wrapper "
+                             "did not raise ValueError")
+            got, want = kernel(), plain()
+            if not torch.equal(got, want):
+                print(f"rule sweep MISMATCH {where}: "
+                      f"{_first_difference(got, want)}")
+                check(False, f"{where}: kernel != plain")
+        out[form] = {"cases": len(cases), "refusals": refused,
+                     "rules": len({c["rule"] for c in cases}),
+                     "seconds": time.perf_counter() - t0}
+        print(f"rule sweep {form}: {len(cases)} cases, "
+              f"{len(cases) - refused} bit-identical to the plain version "
+              f"(tolerance 0), {out[form]['rules']} distinct rules, "
+              f"{refused} refusals (each refused by supported* and raised "
+              f"by the wrapper), {out[form]['seconds']:.1f} s  [{card}]")
+    # one drawn rule per family at full width, through the main path
+    paths = [("life_packed", cs.DEFAULT_GENS_PER_CALL, cs.multi_step_reference),
+             ("life_generations", cs.DEFAULT_GENERATIONS_GENS_PER_CALL,
+              cs.multi_step_generations_reference),
+             ("life_ltl", cs.DEFAULT_LTL_GENS_PER_CALL,
+              cs.multi_step_ltl_reference)]
+    for kernel, g, plain in paths:
+        rule = next(c["rule"] for c in draws[kernel] if kernel != "life_ltl"
+                    or cs._ltl_rule_fits(c["rule"]))
+        coord = GridCoordinator(MAIN_SHAPE, rule, backend="cuda",
+                                random_fill=0.5, rng_seed=seed, device="cuda")
+        start = coord.engine.state.clone()
+        cs.reset_launch_counts()
+        coord.run(SWEEP_TICK, render_every=SWEEP_TICK)
+        counts = cs.launch_counts()
+        want = math.ceil(SWEEP_TICK / g)
+        check(counts[kernel] == want
+              and all(v == 0 for k, v in counts.items() if k != kernel),
+              f"rule sweep at {MAIN_SHAPE}: {rule} launched {counts}, "
+              f"expected {want} of {kernel} alone")
+        expected = plain(start, SWEEP_TICK, rule=rule)
+        if not torch.equal(coord.engine.state, expected):
+            print(f"rule sweep MISMATCH {kernel} at {MAIN_SHAPE} TORUS, "
+                  f"{rule}, n={SWEEP_TICK}, seed {seed}: "
+                  f"{_first_difference(coord.engine.state, expected)}")
+            check(False, f"rule sweep: {rule} at {MAIN_SHAPE} != plain")
+        out[kernel]["main_path"] = str(rule)
+        print(f"rule sweep main path: GridCoordinator {MAIN_SHAPE[0]}x"
+              f"{MAIN_SHAPE[1]} {rule} TORUS, one tick of {SWEEP_TICK} "
+              f"generations, {counts[kernel]} {kernel} launches "
+              f"(= ceil({SWEEP_TICK}/{g})), state == the plain version")
+        del coord, start, expected
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"rule sweep phase: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+def rule_sweep_main(seed: int) -> int:
+    """``chip_smoke.py --rule-sweep SEED``: build the kernels and run the
+    rule sweep alone from ``SEED`` (a failing case of a full run re-runs
+    from the seed it printed)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from gameoflifewithactors_torch import _build
+    from gameoflifewithactors_torch.ops import cuda_stencil as cs
+
+    card = nvidia_smi("name,power.limit")
+    print(card)
+    _build.build_all(KERNELS)
+    rule_sweep_phase(cs, card, torch.device("cuda"), seed)
+    return 0
 
 
 MAIN_PATHS = [  # (kernel, rule, family's default depth attribute)
@@ -946,18 +1365,27 @@ def cli_round_trip(repo: str, work: str) -> None:
         check(proc.returncode == 0,
               f"CLI {proc.args} exited {proc.returncode}: {err}")
 
-    for mesh in ([], ["--mesh", "bands"]):
-        tag = "mesh" if mesh else "single"
-        f = {k: os.path.join(work, f"cli-{tag}-{k}") for k in
-             ("c.npz", "a.rle", "a.ppm", "b.rle", "b.ppm")}
-        first = run(*base, *mesh, "--steps", "200", "--checkpoint", f["c.npz"])
-        straight = run(*base, *mesh, "--steps", "300", "--save-rle", f["b.rle"],
-                       "--ppm", f["b.ppm"])
-        wait(first)
-        resumed = run("--resume", f["c.npz"], *mesh, "--steps", "100",
-                      "--save-rle", f["a.rle"], "--ppm", f["a.ppm"])
-        wait(straight)
-        wait(resumed)
+    # the single-device and the mesh runs all started together, each
+    # resume as soon as its checkpoint is written
+    meshes = {"single": [], "mesh": ["--mesh", "bands"]}
+    files, firsts, straights = {}, {}, {}
+    for tag, mesh in meshes.items():
+        f = files[tag] = {k: os.path.join(work, f"cli-{tag}-{k}") for k in
+                          ("c.npz", "a.rle", "a.ppm", "b.rle", "b.ppm")}
+        firsts[tag] = run(*base, *mesh, "--steps", "200", "--checkpoint",
+                          f["c.npz"])
+        straights[tag] = run(*base, *mesh, "--steps", "300", "--save-rle",
+                             f["b.rle"], "--ppm", f["b.ppm"])
+    resumed = {}
+    for tag, mesh in meshes.items():
+        f = files[tag]
+        wait(firsts[tag])
+        resumed[tag] = run("--resume", f["c.npz"], *mesh, "--steps", "100",
+                           "--save-rle", f["a.rle"], "--ppm", f["a.ppm"])
+    for tag, mesh in meshes.items():
+        f = files[tag]
+        wait(straights[tag])
+        wait(resumed[tag])
         for kind in ("rle", "ppm"):
             with open(f[f"a.{kind}"], "rb") as a, open(f[f"b.{kind}"], "rb") as b:
                 check(a.read() == b.read(),
@@ -1929,7 +2357,7 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
     ``cache_miss`` with nvcc seconds; the ``packed`` spec's record
     written, the ``cuda`` specs out of the registry's scope); (2) the CLI
     at 16384² B3/S23 from spawn to the end of its first 2000-generation
-    tick, on empty roots (nvcc builds B1) and on D1 (no build), in turns;
+    tick, on an empty root (nvcc builds B1) and on D1 (no build);
     (3) in-process, ``Engine(backend="packed")`` on D1 served by the
     registry (CUDA graphs of the plain loop): 200 generations equal to
     the eager plain runner and to B1, no kernel launched, a handed-out
@@ -1998,8 +2426,8 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
     print(f"warmup process (spawn to exit, {len(rows)} specs): {wall:.4f} s  "
           f"[{card}]")
 
-    # (2) time to first step through the CLI, cold and warm in turns (the
-    # bench's warm_vs_cold.first_step)
+    # (2) time to first step through the CLI, once cold and once warm (the
+    # bench's warm_vs_cold.first_step; its own tool repeats them in turns)
     def first_step(root: str, label: str):
         try:
             return warm_vs_cold.first_step(
@@ -2011,8 +2439,7 @@ def warmstart_phase(cs, card: str, repo: str) -> dict:
             check(False, str(exc))
 
     runs = []
-    for label, root in [("cold", os.path.join(work, "D2")), ("warm", warm_root),
-                        ("warm", warm_root), ("cold", os.path.join(work, "D3"))]:
+    for label, root in [("cold", os.path.join(work, "D2")), ("warm", warm_root)]:
         first, kinds, nvcc = first_step(root, f"{label}{len(runs)}")
         if label == "warm":
             check(kinds.get("cache_miss", 0) == 0 and nvcc == 0,
@@ -2834,7 +3261,8 @@ DRILL_FAMILIES = (  # the JAX drill's split at serving-cell widths
     {"rule": "B36/S23", "height": 1024, "width": 1024, "topology": "torus"},
     {"rule": "B3/S23", "height": 512, "width": 1024, "topology": "dead"},
 )
-DRILL_SESSIONS = 200
+DRILL_SESSIONS = 100           # cut from 200 to pay for the rule sweep
+DRILL_SAMPLE = 20              # oracle-checked sessions: stride 5, every tenant
 DRILL_SOAK_SHAPES = {"packed": (4096, 4096), "dense": (4096, 4096),
                      "sparse": (4096, 4096), "ltl": (2048, 2048),
                      "ensemble": (1024, 1024)}
@@ -2849,9 +3277,9 @@ def drills_phase(card: str, dev) -> dict:
     failure fails the script (nothing caught, ``GOLTPU_SANITIZE=1`` in
     every drill process), every process loading this run's kernels:
 
-    (a) ``serve_load``: 200 sessions over HTTP in the JAX drill's three
+    (a) ``serve_load``: 100 sessions over HTTP in the JAX drill's three
         families at 1024^2-class widths (each resolving to B2's lane
-        form), ladder 1,8,64, two mixed rounds, 40 sampled grids against
+        form), ladder 1,8,64, two mixed rounds, 20 sampled grids against
         the numpy oracle, a SIGKILL and ``--resume`` of the server;
     (b) ``soak``: one worker per flavor (packed, dense, sparse at 4096^2,
         LtL at 2048^2, an ensemble of two 1024^2 members) and five oracle
@@ -2884,7 +3312,8 @@ def drills_phase(card: str, dev) -> dict:
                   f"{family} does not resolve to B2's lane form")
         t0 = time.perf_counter()
         served = serve_load.run(os.path.join(work, "serve"),
-                                sessions=DRILL_SESSIONS, device="cuda",
+                                sessions=DRILL_SESSIONS, sample=DRILL_SAMPLE,
+                                device="cuda",
                                 families=DRILL_FAMILIES)
         out["serve_load_s"] = time.perf_counter() - t0
         check(served["ok"], f"serve_load failed: {served['failures'][:10]}")
@@ -3639,7 +4068,7 @@ def main() -> int:
             "bosco", "majority", "R1,C0,M1,S2..3,B3..3",
             "R7,C0,M1,S20..60,B25..50,NN", "R3,C0,M0,S10..20,B12..16",
             "R2,C2,S6-9,12-14,B7-8,11"]]
-    every = [(rule, [(64, 96), (200, 160)]) for rule in ltl_every_form()]
+    every = [(rule, [(64, 96)]) for rule in ltl_every_form()]
     for rule, shapes in named + every:
         for shape in shapes:
             p = bitpack.pack(seeds.bernoulli(rng, shape, 0.5))
@@ -3660,6 +4089,8 @@ def main() -> int:
     worst.update(check_slab_forms(cs, rng, Topology, parse_any, n_planes))
 
     stamp("the kernels against their plain versions")
+    rule_sweep = rule_sweep_phase(cs, card, dev)
+    stamp("the rule sweep")
 
     # -- 3. the main paths ---------------------------------------------------
     main_launches = {}
@@ -4120,6 +4551,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if by_ops else "bytes",
         "library_ms": None,
+        "sweep_cases": rule_sweep[name]["cases"],
+        "sweep_rules": rule_sweep[name]["rules"],
+        "sweep_refusals": rule_sweep[name]["refusals"],
     } for name, source, line, ms, plain_ms, bound_ms, by_ops in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4128,6 +4562,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rule-sweep"]:
+        sys.exit(rule_sweep_main(int(sys.argv[2]) if sys.argv[2:] else
+                                 RULE_SWEEP_SEED))
     if sys.argv[1:2] == ["--band-worker"]:
         sys.exit(band_worker(int(sys.argv[2]), int(sys.argv[3]),
                              int(sys.argv[4]), sys.argv[5]))

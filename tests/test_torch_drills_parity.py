@@ -176,7 +176,7 @@ def test_serve_load_stride_and_tenant_spread_equal_jax():
             j_serve.FAMILIES[i % len(j_serve.FAMILIES)],
             j_serve.TENANTS[i % len(j_serve.TENANTS)])
     # every tenant has a sampled session at the JAX and card sizes
-    for n, sample in ((200, 40), (24, 8)):
+    for n, sample in ((200, 40), (100, 20), (24, 8)):
         sampled = range(0, n, t_serve_load.sample_stride(n, sample))
         assert {t_serve_load.session_assignment(i)[1] for i in sampled} == \
             set(t_serve_load.TENANTS)
