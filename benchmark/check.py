@@ -1,0 +1,75 @@
+"""The comparison that decides ``correct``: the program's outputs against
+the plain reference, cell for cell.
+
+A configuration names its reference (``reference`` in its file):
+``life_packed`` (:mod:`.reference.life_packed`, radius-1 rules of the
+eight neighbours, a word of 32 cells at a time) or ``box_rule``
+(:mod:`.reference.box_rule`, any Moore box, a byte a cell). Both step the
+packed words of the configuration's layout, which they read and write
+themselves. Every number compared is a count of cells that differ, with
+the limit 0: the rules are exact. The reference draws the soup again from
+the seed (:mod:`.inputs`) and reads the program's outputs only to judge
+them. Where it follows the program from the program's own state (a tick
+drawn from the window, a session's later request), the start is checked
+apart, from the soup.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from .reference import box_rule, life_packed
+
+LIMIT = 0
+
+
+class Reference:
+    """The configuration's plain reference, on packed words."""
+
+    def __init__(self, config: dict):
+        self.kind = config["reference"]
+        if self.kind == "life_packed":
+            self.born, self.survive = life_packed.counts_of(config)
+        elif self.kind == "box_rule":
+            self.rule = box_rule.BoxRule.from_config(config)
+        else:
+            raise ValueError(f"no reference named {self.kind!r}")
+
+    def run(self, words: torch.Tensor, gens: int,
+            torus: bool = True) -> torch.Tensor:
+        """``gens`` generations of ``(..., H, W/32)`` words on the torus
+        (``torus=False``: dead beyond the edges, the control's fault)."""
+        if self.kind == "life_packed":
+            return life_packed.run(words, self.born, self.survive, gens, torus)
+        cells = box_rule.run(box_rule.unpack_words(words), self.rule, gens,
+                             torus=torus)
+        return box_rule.pack_cells(cells)
+
+
+def mismatched_cells(expected: torch.Tensor, got: torch.Tensor) -> int:
+    """Cells that differ between two grids of packed words."""
+    diff = expected ^ got.to(expected.device)
+    if not bool(diff.any()):
+        return 0
+    return int(box_rule.unpack_words(diff).sum())
+
+
+def compare(reference: Reference, before: torch.Tensor, after: torch.Tensor,
+            gens: int) -> int:
+    """Cells of the program's ``after`` words that differ from the
+    reference's ``gens`` generations of ``before`` words."""
+    return mismatched_cells(reference.run(before, gens), after)
+
+
+def compare_each(reference: Reference, befores: List[torch.Tensor],
+                 afters: List[torch.Tensor], gens: int,
+                 chunk: int = 64) -> List[int]:
+    """:func:`compare` of each pair, ``chunk`` pairs stepped together."""
+    out: List[int] = []
+    for i in range(0, len(befores), chunk):
+        want = reference.run(torch.stack(befores[i:i + chunk]), gens)
+        for w, a in zip(want, afters[i:i + chunk]):
+            out.append(mismatched_cells(w, a))
+    return out
