@@ -9,7 +9,8 @@ Chrome trace through ``utils.profiling.perfetto_summary``, and publishes
 slice-name classification, the JAX package's five classes, so reports and
 ``obs.aggregate.PER_CHIP_GAUGES`` stay comparable -- as registry gauges
 and a cumulative ``attribution()`` dict the RunReport carries, with the
-device's measured duty cycle, its longest idle gaps and its top kernels.
+device's measured duty cycle, its longest idle gaps (bare, and named by
+the host span open in each) and its top kernels.
 
 The window is opened from the sampler's thread; the profiler records the
 kernels every thread of the process launches, so the device tracks see
@@ -167,6 +168,7 @@ class ProfileSampler:
             self._device_busy_us = 0.0
             self._device_span_us = 0.0
             self._idle_gaps_us: list = []
+            self._idle_gaps_named: list = []
             self._kernel_us: dict = {}
 
     # -- capture --------------------------------------------------------------
@@ -232,6 +234,10 @@ class ProfileSampler:
             self._idle_gaps_us = sorted(
                 self._idle_gaps_us + list(summary.get("idle_gaps_us") or []),
                 reverse=True)[:5]
+            self._idle_gaps_named = sorted(
+                self._idle_gaps_named
+                + list(summary.get("idle_gaps_named") or []),
+                key=lambda gap: -gap[1])[:5]
             for name, us in summary.get("top_kernels") or []:
                 self._kernel_us[name] = self._kernel_us.get(name, 0.0) + us
             cum_op = dict(self._op_class_us)
@@ -302,6 +308,7 @@ class ProfileSampler:
             source = self._source
             busy_us, span_us = self._device_busy_us, self._device_span_us
             gaps = list(self._idle_gaps_us)
+            named = [list(gap) for gap in self._idle_gaps_named]
             kernels = sorted(self._kernel_us.items(), key=lambda kv: -kv[1])
         total_us = sum(cum_op.values())
         out: dict = {
@@ -327,6 +334,9 @@ class ProfileSampler:
             "device_duty_cycle": (busy_us / span_us if span_us
                                   and source == "device_tracks" else None),
             "idle_gaps_us": gaps,
+            # the same gaps where a window could name them: [the host
+            # span in whose middle each lies, us] (perfetto_summary)
+            "idle_gaps_named": named,
             "top_kernels": [[name, round(us, 1)] for name, us in kernels[:4]],
         }
         measured = None

@@ -35,9 +35,10 @@ import contextlib
 import dataclasses
 import json
 import os
+import random
 import threading
 import time
-from typing import Deque, Iterator, List, Optional, TextIO
+from typing import Deque, Iterator, List, Optional, TextIO, Tuple
 
 DEFAULT_MAX_SPANS = 65536
 
@@ -46,14 +47,23 @@ DEFAULT_MAX_SPANS = 65536
 TRACE_ENV_VAR = "GOLTPU_TRACE"
 
 
+# Ids come from a generator of their own, seeded by the OS (again in a
+# forked child), not from os.urandom per id: that system call gives up
+# the interpreter lock, so each traced span let a busy thread take the
+# interpreter for up to its switch interval (5 ms) before the span's
+# thread went on, under the session service's lock too.
+_IDS = random.Random()
+os.register_at_fork(after_in_child=_IDS.seed)
+
+
 def new_trace_id() -> str:
     """A fresh 128-bit trace id as 32 lowercase hex chars."""
-    return os.urandom(16).hex()
+    return f"{_IDS.getrandbits(128):032x}"
 
 
 def new_span_id() -> str:
     """A fresh 64-bit span id as 16 lowercase hex chars."""
-    return os.urandom(8).hex()
+    return f"{_IDS.getrandbits(64):016x}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,20 +247,40 @@ class SpanTracer:
             stack.pop()
             if ids is not None:
                 ids.pop()
-            th = threading.current_thread()
-            s = Span(name=name, t0=t0, t1=t1, thread_id=th.ident or 0,
-                     thread_name=th.name, depth=depth, attrs=attrs or None,
-                     trace_id=ctx.trace_id if ctx is not None else None,
-                     span_id=span_id, parent_id=parent_id)
-            with self._lock:
-                self._spans.append(s)
-                self._last = s
-                listeners = self._listeners
-            for fn in listeners:
-                try:
-                    fn(s)
-                except Exception:
-                    pass  # a broken tap must not break the traced code
+            self._emit(name, t0, t1, depth, attrs, ctx, span_id, parent_id)
+
+    def record(self, name: str, t0: float, t1: float, **attrs) -> None:
+        """Record a region the caller timed itself (two ``perf_counter``
+        readings it also uses elsewhere, such as a wait whose end is the
+        moment a lock is held) as a completed span, a child of the
+        calling thread's innermost open span."""
+        if not self.enabled:
+            return
+        ctx = current_trace()
+        span_id = parent_id = None
+        if ctx is not None:
+            ids = self._live_ids()
+            span_id = new_span_id()
+            parent_id = ids[-1] if ids else ctx.span_id
+        self._emit(name, t0, t1, len(self._live_stack()), attrs, ctx,
+                   span_id, parent_id)
+
+    def _emit(self, name, t0, t1, depth, attrs, ctx, span_id,
+              parent_id) -> None:
+        th = threading.current_thread()
+        s = Span(name=name, t0=t0, t1=t1, thread_id=th.ident or 0,
+                 thread_name=th.name, depth=depth, attrs=attrs or None,
+                 trace_id=ctx.trace_id if ctx is not None else None,
+                 span_id=span_id, parent_id=parent_id)
+        with self._lock:
+            self._spans.append(s)
+            self._last = s
+            listeners = self._listeners
+        for fn in listeners:
+            try:
+                fn(s)
+            except Exception:
+                pass  # a broken tap must not break the traced code
 
     # -- inspection ----------------------------------------------------------
 
@@ -311,11 +341,23 @@ class SpanTracer:
 
     # -- export --------------------------------------------------------------
 
-    def to_chrome_trace(self) -> dict:
+    def to_chrome_trace(self, anchor: Optional[Tuple[float, float]] = None
+                        ) -> dict:
         """chrome://tracing / Perfetto JSON object format. Timestamps are
-        wall-clock microseconds (epoch-anchored), so this file and a
-        ``torch.profiler`` trace from the same process line up when both are
-        opened in ui.perfetto.dev."""
+        wall-clock microseconds (epoch-anchored), the timeline
+        ``obs/aggregate.py`` merges processes on. A ``torch.profiler``
+        trace counts its ``ts`` from its own ``baseTimeNanoseconds``, so
+        it does not share that timeline: given ``anchor``, the
+        ``(perf_counter seconds, ts)`` of one instant of such a trace
+        (``utils.profiling.clock_anchor`` of a capture the port wrote),
+        timestamps are that trace's, and the two files line up when both
+        are opened in ui.perfetto.dev: on an H100's host, a span opened
+        around a profiler range read 24-248 us before the range, the
+        range's own entry."""
+        if anchor is None:
+            offset = self.epoch_anchor * 1e6
+        else:
+            offset = anchor[1] - anchor[0] * 1e6
         pid = os.getpid()
         events = [{
             "ph": "M", "pid": pid, "tid": 0, "name": "process_name",
@@ -332,7 +374,7 @@ class SpanTracer:
                 })
             ev = {
                 "ph": "X", "pid": pid, "tid": s.thread_id, "name": s.name,
-                "ts": (s.t0 + self.epoch_anchor) * 1e6,
+                "ts": s.t0 * 1e6 + offset,
                 "dur": s.seconds * 1e6,
             }
             args = dict(s.attrs) if s.attrs else {}
@@ -369,3 +411,8 @@ def span(name: str, **attrs):
     """Record on the process-default tracer (what the engine/coordinator/
     scheduler instrumentation uses)."""
     return TRACER.span(name, **attrs)
+
+
+def record(name: str, t0: float, t1: float, **attrs) -> None:
+    """:meth:`SpanTracer.record` on the process-default tracer."""
+    TRACER.record(name, t0, t1, **attrs)

@@ -8,6 +8,15 @@ cache root, :mod:`..aot.cache`). ``--manifest`` (an ``aot/warmup.py``
 manifest) builds, before the port opens, the lane kernel of every entry
 that carries a ``lanes`` ladder.
 
+Tracing: each request runs in a ``serve.request`` span under the trace of
+its ``X-Goltpu-Trace`` header (a fresh one without it), and its response
+(the JSON, the headers and the socket write) in ``serve.respond``. A
+client that sends one header value on both its step and its read gets
+one trace of the pair: from the step's ``serve.lock_wait`` and
+``lane.dispatch`` (the enqueue) to the read's ``serve.frame_sync``, which
+closes when the card has finished the stepped work, and its copy,
+encoding and response.
+
 Same stdlib ``ThreadingHTTPServer`` idiom as obs/exporter.py — request
 threads translate JSON to :class:`SessionService` calls (the service
 lock serializes anything that touches lanes), and the metrics/health
@@ -88,19 +97,18 @@ class SessionFrontend:
 
             def _send(self, code: int, payload: dict,
                       ctype: str = "application/json") -> None:
-                if self.trace_id is not None and "trace_id" not in payload:
-                    payload = {**payload, "trace_id": self.trace_id}
-                body = (json.dumps(payload) + "\n").encode("utf-8")
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(body)))
-                if self.trace_id is not None:
-                    self.send_header(TRACE_HEADER, self.trace_id)
-                self.end_headers()
-                self.wfile.write(body)
+                with obs_spans.span("serve.respond"):
+                    if (self.trace_id is not None
+                            and "trace_id" not in payload):
+                        payload = {**payload, "trace_id": self.trace_id}
+                    self._write(code, (json.dumps(payload) + "\n").encode(
+                        "utf-8"), ctype)
 
             def _send_text(self, code: int, text: str, ctype: str) -> None:
-                body = text.encode("utf-8")
+                with obs_spans.span("serve.respond"):
+                    self._write(code, text.encode("utf-8"), ctype)
+
+            def _write(self, code: int, body: bytes, ctype: str) -> None:
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))

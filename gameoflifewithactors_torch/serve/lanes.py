@@ -173,6 +173,15 @@ def warm_family(family: SpecFamily, device) -> None:
         cuda_stencil.load_slab_kernel()
 
 
+def sync_device(device) -> None:
+    """Wait until ``device`` has run what the calling thread enqueued on
+    its current stream, the stream every lane launches and copies on (no
+    thread of the service sets another); nothing on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _words(words, device) -> torch.Tensor:
     """A slot's ``(H, W/32)`` words on ``device``: a host uint32 array or an
     int32 tensor (a device-to-device copy when repacking)."""
@@ -223,6 +232,10 @@ class Lane:
     def read(self, slot: int) -> np.ndarray:
         """The slot's words as a new host ``'<u4'`` array."""
         return state_to_numpy(self.state[slot])
+
+    def sync(self) -> None:
+        """Wait until the device has run every dispatch enqueued here."""
+        sync_device(self.device)
 
     def write(self, slot: int, words) -> None:
         self.state[slot] = _words(words, self.device)
@@ -462,6 +475,10 @@ class PagedLane:
     def read(self, slot: int) -> np.ndarray:
         """The slot's words as a new host ``'<u4'`` array."""
         return self.grids[slot].to_words()[0]
+
+    def sync(self) -> None:
+        """Wait until the device has run every dispatch enqueued here."""
+        sync_device(self.pool.device)
 
     def write(self, slot: int, words: np.ndarray) -> None:
         grid = self.grids[slot]

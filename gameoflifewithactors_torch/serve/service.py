@@ -41,10 +41,23 @@ resolves as on the ladder.
 Locking: one re-entrant service lock around anything that touches lanes
 or session placement. The store and registry have their own fine-grained
 locks for read paths (/healthz, /metrics) that must not wait on a pump.
+Every public method takes the service lock through
+:meth:`SessionService._locked`, which records how long it waited.
+
+Spans of a request, besides ``serve.admission`` and ``lane.dispatch``
+(around the lanes' ``engine.step``, the enqueue): ``serve.lock_wait``
+(``op``: the public method, ``grid`` for both reads) from asking for the
+lock to holding it, a sibling of what the lock then guards;
+``serve.frame_sync`` (``lane``, ``slot``), a read's wait for the lane's
+device stream to finish what was enqueued on it, which closes when the
+card has done the work; ``serve.frame_copy``, the slot's copy to a host
+array; ``serve.frame_encode``, its hex. The last three run under the
+lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -155,8 +168,10 @@ class SessionService:
         # its own histogram in admission.py) and a recent-throughput gauge
         self._m_phase = reg.histogram(
             "session_phase_seconds",
-            "request-phase latency by phase "
-            "(admission / dispatch / first_step), per tenant")
+            "request-phase latency by phase, per tenant: admission; "
+            "lock_wait (for the service lock); dispatch (the enqueue of "
+            "a step's lane dispatches, not their work on the device); "
+            "frame_sync (a read's wait for that work); first_step")
         self._m_tenant_rate = reg.gauge(
             "tenant_steps_per_sec",
             "recent per-tenant step throughput on THIS process's chips "
@@ -174,7 +189,7 @@ class SessionService:
         """Build the kernel a family's lanes launch, ahead of its first
         dispatch. Returns the family key."""
         family = self._family(spec)
-        with self._lock:
+        with self._locked("warm"):
             self._pool(family).warm()
         return family.key
 
@@ -235,7 +250,7 @@ class SessionService:
         ``cells_hex`` ships explicit packed words."""
         family = self._family(spec)
         words = self._seed_words(family, fill, rng_seed, cells_hex)
-        with self._lock:
+        with self._locked("create", tenant=tenant):
             pool = self._pool(family)
             t_adm = time.perf_counter()
             with obs_spans.span("serve.admission", tenant=tenant,
@@ -287,7 +302,7 @@ class SessionService:
         are admitted."""
         if n < 0:
             raise ValueError(f"cannot step a negative count ({n})")
-        with self._lock:
+        with self._locked("step", sid=sid):
             s = self.store.get(sid)
             if s.state in DEAD_STATES:
                 raise ValueError(f"session {sid} is {s.state}")
@@ -302,7 +317,7 @@ class SessionService:
             return self._info(s)
 
     def close(self, sid: str) -> dict:
-        with self._lock:
+        with self._locked("close", sid=sid):
             s = self.store.get(sid)
             if s.state in DEAD_STATES:
                 return self._info(s)
@@ -321,30 +336,32 @@ class SessionService:
             return self._info(s)
 
     def info(self, sid: str) -> dict:
-        with self._lock:
+        with self._locked("info", sid=sid):
             return self._info(self.store.get(sid))
 
     def grid(self, sid: str) -> np.ndarray:
         """The session's current cells, (H, W) uint8 (the lane slot, or
         the parking buffer, copied to the host and unpacked there)."""
-        with self._lock:
+        with self._locked("grid", sid=sid):
             s = self.store.get(sid)
-            return bitpack.unpack_np(self._words_of(s))
+            return bitpack.unpack_np(self._frame(s))
 
     def grid_hex(self, sid: str) -> dict:
-        with self._lock:
+        with self._locked("grid", sid=sid):
             s = self.store.get(sid)
+            words = self._frame(s)
+            with obs_spans.span("serve.frame_encode"):
+                cells_hex = encode_words(words)
             return {"sid": s.sid, "generation": s.generation,
                     "height": s.spec["height"], "width": s.spec["width"],
-                    "encoding": "packed_le_u32_hex",
-                    "cells_hex": encode_words(self._words_of(s))}
+                    "encoding": "packed_le_u32_hex", "cells_hex": cells_hex}
 
     # -- the pump ------------------------------------------------------------
 
     def pump(self) -> int:
         """Apply every session's pending debt. Returns the number of
         lane dispatches issued."""
-        with self._lock:
+        with self._locked("pump"):
             dispatches = 0
             for pool in list(self.pools.values()):
                 for lane in list(pool.lanes.values()):
@@ -471,7 +488,7 @@ class SessionService:
         path = path or self.checkpoint_path
         if not path:
             raise ValueError("no checkpoint path configured")
-        with self._lock:
+        with self._locked("checkpoint"):
             manifest: dict = {"version": CHECKPOINT_VERSION,
                               "created_at": time.strftime(
                                   "%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
@@ -506,7 +523,7 @@ class SessionService:
         path = path or self.checkpoint_path
         if not path:
             raise ValueError("no checkpoint path configured")
-        with self._lock:
+        with self._locked("resume"):
             if self.store.all():
                 raise RuntimeError(
                     "resume() needs an empty service (it rebuilds "
@@ -548,7 +565,7 @@ class SessionService:
 
     def counts(self) -> dict:
         """The /healthz body: live session/lane/queue counts, cheap."""
-        with self._lock:
+        with self._locked("counts"):
             lanes = sum(len(p.lanes) for p in self.pools.values())
             slots = sum(p.total_capacity() for p in self.pools.values())
             occupied = sum(p.live_count() for p in self.pools.values())
@@ -559,13 +576,54 @@ class SessionService:
                 "families": sorted(self.pools)}
 
     def lane_stats(self) -> List[dict]:
-        with self._lock:
+        with self._locked("lane_stats"):
             out: List[dict] = []
             for pool in self.pools.values():
                 out.extend(pool.stats())
             return out
 
     # -- internals -----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _locked(self, op: str, *, tenant: Optional[str] = None,
+                sid: Optional[str] = None):
+        """The service lock, for public method ``op``. A first acquisition
+        records its wait as a ``serve.lock_wait`` span that closes once
+        the lock is held, and the same two readings as the ``lock_wait``
+        phase of ``tenant`` (or of session ``sid``'s tenant); a holder's
+        re-entry (the pump inside ``step``) records nothing."""
+        if self._lock._is_owned():
+            with self._lock:
+                yield
+            return
+        t0 = time.perf_counter()
+        with self._lock:
+            t1 = time.perf_counter()
+            obs_spans.record("serve.lock_wait", t0, t1, op=op)
+            if sid is not None:
+                s = self.store.maybe(sid)
+                tenant = s.tenant if s is not None else None
+            if tenant is not None:
+                self._m_phase.observe(t1 - t0, phase="lock_wait",
+                                      tenant=tenant)
+            yield
+
+    def _frame(self, s: Session) -> np.ndarray:
+        """A read's copy of the session's words: a placed session's lane
+        first runs what was enqueued on it (``serve.frame_sync``, also the
+        ``frame_sync`` phase), so that the copy (``serve.frame_copy``)
+        waits for nothing."""
+        if s.placement() is not None:
+            lane = self.pools[s.family_key].lanes[s.lane_id]
+            t0 = time.perf_counter()
+            lane.sync()
+            t1 = time.perf_counter()
+            obs_spans.record("serve.frame_sync", t0, t1, lane=s.lane_id,
+                             slot=s.slot)
+            self._m_phase.observe(t1 - t0, phase="frame_sync",
+                                  tenant=s.tenant)
+        with obs_spans.span("serve.frame_copy"):
+            return self._words_of(s)
 
     def _seed_words(self, family: SpecFamily, fill, rng_seed,
                     cells_hex) -> np.ndarray:

@@ -7,9 +7,17 @@ phases that matter, plus a wall-clock timer that needs no trace viewer.
 
 :func:`perfetto_summary` reads such a trace back: the device's busy time as
 the union of its kernel, copy and fill intervals, the duty cycle over the
-span they cover, the longest idle gaps, the top kernels and the op-class
-attribution (:func:`.obs.profiler.classify_slice`). :func:`device_activity`
-counts what the card ran over ``n`` more generations of an engine.
+span they cover, the longest idle gaps, each named by the host span
+(:mod:`.obs.spans`) in whose middle it lies, the top kernels and the
+op-class attribution (:func:`.obs.profiler.classify_slice`).
+:func:`device_activity` counts what the card ran over ``n`` more
+generations of an engine.
+
+The clock: every capture here opens one ``obs.clock_anchor`` range right
+after the profiler starts and reads ``time.perf_counter`` (the spans'
+clock) as it closes; the reading is stored in the exported trace
+(top-level ``obsClockAnchor``), so the range's end places any span of the
+process on the trace's timeline (:func:`clock_anchor`).
 
 Only one ``torch.profiler`` can be active in a process: every capture here
 (and the sampling profiler's windows) holds :data:`PROFILER_LOCK`, so two
@@ -23,7 +31,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 #: Held by every profiler capture of the process (one may be active).
 PROFILER_LOCK = threading.Lock()
@@ -34,6 +42,12 @@ PROFILER_LOCK = threading.Lock()
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_NAME = "trace.json"
 IDLE_GAPS = 5   # the longest idle gaps a summary lists
+#: The range that ties a capture's timeline to ``time.perf_counter``.
+CLOCK_ANCHOR = "obs.clock_anchor"
+#: Spans of a thread that waits for another rather than does what the
+#: card waits on: an idle gap is never named after one.
+WAITING_SPANS = frozenset({"serve.lock_wait"})
+NO_HOST_SPAN = "no host span"
 
 
 def _activities():
@@ -54,21 +68,49 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
+def _start(prof) -> float:
+    """Start ``prof`` and mark the :data:`CLOCK_ANCHOR` range; the
+    ``perf_counter`` reading at its end. (Read right after the range
+    closes, the reading lies 2-12 us after the end's timestamp; read
+    inside, 30-60 us after its start's, and 1.3 ms on a process's first
+    range: the entry's cost, measured with ``torch.profiler`` on a CPU.)"""
+    import torch
+
+    prof.start()
+    with torch.profiler.record_function(CLOCK_ANCHOR):
+        pass
+    return time.perf_counter()
+
+
+def _export(prof, path: str, anchor_s: float) -> None:
+    """The Chrome trace of ``prof`` at ``path``, with the anchor's
+    ``perf_counter`` reading and this process's id."""
+    import json as _json
+
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = _json.load(f)
+    data["obsClockAnchor"] = {"perf_counter_s": anchor_s,
+                              "pid": os.getpid()}
+    with open(path, "w") as f:
+        _json.dump(data, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """Capture a host and device profile into ``log_dir/trace.json`` (a
-    Chrome trace)."""
+    Chrome trace, clock-anchored: see the module docstring)."""
     from torch.profiler import profile
 
     os.makedirs(log_dir, exist_ok=True)
     with PROFILER_LOCK:
         prof = profile(activities=_activities())
-        prof.start()
+        anchor_s = _start(prof)
         try:
             yield
         finally:
             prof.stop()
-            prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))
+            _export(prof, os.path.join(log_dir, TRACE_NAME), anchor_s)
 
 
 def profile_steps(engine, generations: int, log_dir: str, chunk: int = 1) -> None:
@@ -182,7 +224,48 @@ def _intersect_len(a: list, b: list) -> float:
     return total
 
 
-def perfetto_summary(trace_path: str) -> dict:
+def _anchor_of(data) -> Optional[Tuple[float, float]]:
+    """``(perf_counter seconds, trace us)`` of one instant of a loaded
+    trace: the :data:`CLOCK_ANCHOR` range's end; None without one."""
+    if not isinstance(data, dict) or "obsClockAnchor" not in data:
+        return None
+    for ev in data.get("traceEvents", []):
+        if (ev.get("name") == CLOCK_ANCHOR and ev.get("ph") == "X"
+                and ev.get("cat") != "gpu_user_annotation"):
+            return (data["obsClockAnchor"]["perf_counter_s"],
+                    float(ev["ts"]) + float(ev.get("dur", 0.0)))
+    return None
+
+
+def clock_anchor(trace_path: str) -> Optional[Tuple[float, float]]:
+    """``(perf_counter seconds, trace us)`` of one instant of a capture
+    written here, the pair :meth:`.obs.spans.SpanTracer.to_chrome_trace`
+    takes to put the process's spans on the capture's timeline; None for
+    a trace without an anchor."""
+    import json as _json
+
+    with open(trace_path) as f:
+        return _anchor_of(_json.load(f))
+
+
+def _innermost_working(spans: list, t: float) -> str:
+    """The name an idle gap with middle ``t`` takes: of each thread's
+    innermost span open at ``t``, leaving out threads that wait
+    (:data:`WAITING_SPANS`), the latest-starting; :data:`NO_HOST_SPAN`
+    where none is left."""
+    innermost: dict = {}
+    for s in spans:
+        if s.t0 <= t <= s.t1:
+            cur = innermost.get(s.thread_id)
+            if cur is None or (s.depth, s.t0) > (cur.depth, cur.t0):
+                innermost[s.thread_id] = s
+    working = [s for s in innermost.values() if s.name not in WAITING_SPANS]
+    if not working:
+        return NO_HOST_SPAN
+    return max(working, key=lambda s: s.t0).name
+
+
+def perfetto_summary(trace_path: str, spans: Optional[list] = None) -> dict:
     """Measured device-activity summary of a Chrome trace written by
     ``torch.profiler`` (``export_chrome_trace``; ``.json`` or ``.json.gz``).
 
@@ -192,7 +275,13 @@ def perfetto_summary(trace_path: str) -> dict:
     union of its work intervals across streams, ``device_span_us`` the
     time from its first work to its last, ``duty_cycle`` their ratio, and
     ``idle_gaps_us`` the longest gaps between work (at most
-    :data:`IDLE_GAPS`); the busiest device is reported. ``source`` is
+    :data:`IDLE_GAPS`); the busiest device is reported.
+    ``idle_gaps_named`` lists the same gaps as ``[span name, us]``, each
+    named by :func:`_innermost_working` at its middle among ``spans``
+    (:class:`.obs.spans.Span` records; by default this process's
+    :data:`.obs.spans.TRACER`, when the trace is this process's), placed
+    on the trace's timeline by its clock anchor; None where the trace has
+    no anchor or the spans are another process's. ``source`` is
     ``"device_tracks"`` when the trace holds device work,
     ``"host_tracks"`` when only host activity was captured (a CPU run, or
     a card the profiler could not see), None for an empty trace.
@@ -215,6 +304,7 @@ def perfetto_summary(trace_path: str) -> dict:
     with opener(trace_path, "rt") as f:
         data = _json.load(f)
     events = data["traceEvents"] if isinstance(data, dict) else data
+    anchor = _anchor_of(data)
 
     proc_names: dict = {}
     thread_names: dict = {}
@@ -267,8 +357,8 @@ def perfetto_summary(trace_path: str) -> dict:
     for pid, evs in work.items():
         merged = _union_intervals([(s, e) for s, e, _ in evs])
         busy = sum(e - s for s, e in merged)
-        gaps = sorted((b[0] - a[1] for a, b in zip(merged, merged[1:])),
-                      reverse=True)
+        gaps = sorted(((b[0] - a[1], a[1], b[0])
+                       for a, b in zip(merged, merged[1:])), reverse=True)
         by_name: dict = {}
         by_class: dict = {}
         for s, e, name in evs:
@@ -312,6 +402,21 @@ def perfetto_summary(trace_path: str) -> dict:
         op_class_us = dict(best["op_class_us"])
 
     dev = devices[0] if devices else None
+    named = None
+    if anchor is not None:
+        if spans is None and data["obsClockAnchor"].get("pid") == os.getpid():
+            from ..obs.spans import TRACER
+
+            spans = TRACER.spans()
+        if spans is not None:
+            gaps = dev["gaps"][:IDLE_GAPS] if dev else []
+            # the perf_counter seconds of each gap's middle
+            mids = [anchor[0] + ((g0 + g1) / 2 - anchor[1]) / 1e6
+                    for _, g0, g1 in gaps]
+            spans = [s for s in spans if mids and s.t0 <= max(mids)
+                     and s.t1 >= min(mids)]
+            named = [[_innermost_working(spans, t), round(g[0], 1)]
+                     for t, g in zip(mids, gaps)]
     return {
         "tracks": tracks[:12],
         "source": source,
@@ -320,8 +425,9 @@ def perfetto_summary(trace_path: str) -> dict:
         "device_busy_us": round(dev["busy"], 1) if dev else 0.0,
         "device_span_us": round(dev["span"], 1) if dev else 0.0,
         "duty_cycle": dev["busy"] / dev["span"] if dev and dev["span"] else None,
-        "idle_gaps_us": [round(g, 1) for g in dev["gaps"][:IDLE_GAPS]]
+        "idle_gaps_us": [round(g[0], 1) for g in dev["gaps"][:IDLE_GAPS]]
         if dev else [],
+        "idle_gaps_named": named,
         "device_slices": dev["n"] if dev else 0,
         "top_kernels": top_kernels,
         "attribution_track": attribution_track,
@@ -351,7 +457,7 @@ def capture_window(window_seconds: float, stop: Optional[threading.Event] = None
     tmp = tempfile.mkdtemp(prefix="goltorch-profile-")
     try:
         prof = profile(activities=_activities())
-        prof.start()
+        anchor_s = _start(prof)
         try:
             if opened is not None:
                 opened.set()
@@ -359,7 +465,7 @@ def capture_window(window_seconds: float, stop: Optional[threading.Event] = None
         finally:
             prof.stop()
         path = os.path.join(tmp, TRACE_NAME)
-        prof.export_chrome_trace(path)
+        _export(prof, path, anchor_s)
         return perfetto_summary(path)
     finally:
         PROFILER_LOCK.release()
