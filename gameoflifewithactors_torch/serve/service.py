@@ -10,12 +10,19 @@ directly. Responsibilities:
 - **create** — admission verdict first (priced at the family's modelled
   slot bytes against the live HBM gauges), then either place into a lane
   slot, park in the backpressure queue, or refuse;
-- **step** — credit a session's ``pending_steps`` debt, then **pump**:
-  per lane, repeatedly dispatch ``min(positive pending)`` generations
-  with the occupancy mask of the still-indebted slots. Sessions at
-  different cursors ride the same dispatch — the mask freezes the ones
-  that are done, so every session's trajectory is bit-identical to a
-  dedicated engine of its own;
+- **step** — post ``n`` generations to the credit list *before* waiting
+  for the service lock, then, holding it, **pump**: apply every posted
+  credit to its session's ``pending_steps`` debt, then per lane
+  repeatedly dispatch ``min(positive pending)`` generations with the
+  occupancy mask of the still-indebted slots. Steps that were waiting
+  for the lock together therefore ride one dispatch (a group commit):
+  whichever of them holds the lock first dispatches them all, and the
+  others find nothing owed. Sessions at different cursors ride the same
+  dispatch too — the mask freezes the ones that are done, so every
+  session's trajectory is bit-identical to a dedicated engine of its
+  own. A step replies, under the lock, once its generations are enqueued
+  on the lane and counted in ``generation`` (by its own pump or an
+  earlier one), so a later read returns the frame at that generation;
 - **close** — free the slot, compact the pool (ladder repack), drain
   the admission queue into the freed capacity;
 - **checkpoint / resume** — one atomic ``.npz`` (packed words + a JSON
@@ -39,10 +46,20 @@ package's ``"auto"`` (always ``"packed"``) does; elsewhere ``"auto"``
 resolves as on the ladder.
 
 Locking: one re-entrant service lock around anything that touches lanes
-or session placement. The store and registry have their own fine-grained
-locks for read paths (/healthz, /metrics) that must not wait on a pump.
-Every public method takes the service lock through
-:meth:`SessionService._locked`, which records how long it waited.
+or session placement; ``pending_steps`` changes only under it. The store
+and registry have their own fine-grained locks for read paths (/healthz,
+/metrics) that must not wait on a pump, and the credit list has one that
+covers only an append or a swap of the list, never a dispatch, a sync or
+a copy. Every public method takes the service lock through
+:meth:`SessionService._locked`, which records how long it waited. Only a
+pump (``step``'s and the public :meth:`SessionService.pump`) applies
+posted credits: a credit still waiting belongs to a ``step`` call that
+has not returned, which serialises after whatever holds the lock. A
+credit for a dead or unknown session is refused at that point, and its
+``step`` raises what it would have raised on finding the session so.
+``session_coalesced_steps_total`` (per family) counts the step calls
+whose credit another call's pump applied to a placed session and
+dispatched.
 
 Spans of a request, besides ``serve.admission`` and ``lane.dispatch``
 (around the lanes' ``engine.step``, the enqueue): ``serve.lock_wait``
@@ -99,6 +116,19 @@ def decode_words(hexstr: str, height: int, wq: int) -> np.ndarray:
         np.uint32)
 
 
+class _Credit:
+    """One ``step`` call's generations, posted before it waits for the
+    service lock. The pump that applies it sets ``refused`` (the error
+    its ``step`` raises) or ``coalesced`` (applied by another call)."""
+
+    __slots__ = ("sid", "n", "refused", "coalesced")
+
+    def __init__(self, sid: str, n: int):
+        self.sid, self.n = sid, n
+        self.refused: Optional[Exception] = None
+        self.coalesced = False
+
+
 class SessionService:
     """The multi-tenant session manager (see module docstring)."""
 
@@ -136,6 +166,9 @@ class SessionService:
         self.store = SessionStore()
         self.pools: Dict[str, LanePool] = {}
         self._lock = threading.RLock()
+        # steps posted and not yet applied (the group commit's queue)
+        self._credits: List[_Credit] = []
+        self._credits_lock = threading.Lock()
         # recovery snapshots: sid -> (packed words, generation) as of the
         # last checkpoint (or admission, before the first one) — what a
         # crashed lane restores from without touching disk
@@ -164,6 +197,10 @@ class SessionService:
         self._m_evictions = reg.counter(
             "session_evictions_total",
             "sessions evicted (lane circuit open), per family")
+        self._m_coalesced = reg.counter(
+            "session_coalesced_steps_total",
+            "step calls whose generations another call's pump applied "
+            "and dispatched, per family")
         # per-tenant SLO surface: request-phase latencies (queue wait has
         # its own histogram in admission.py) and a recent-throughput gauge
         self._m_phase = reg.histogram(
@@ -297,23 +334,45 @@ class SessionService:
             return self._info(s)
 
     def step(self, sid: str, n: int, *, pump: bool = True) -> dict:
-        """Credit ``n`` generations of debt; by default pump immediately.
-        Queued (pending) sessions accumulate debt that applies once they
-        are admitted."""
+        """Owe ``n`` more generations to session ``sid``; by default pump
+        them. Queued (pending) sessions accumulate debt that applies once
+        they are admitted.
+
+        With ``pump`` the generations are posted to the credit list
+        before the call waits for the service lock, so that whichever
+        pump holds the lock next dispatches them beside every other step
+        posted by then. The reply is given under the lock once the
+        step's generations are enqueued on its lane and counted in
+        ``generation``: at once where another call's pump dispatched
+        them and nothing more is owed, else after a pump of its own. A
+        dead or unknown session raises (``ValueError`` or ``KeyError``)
+        when the credit is applied. Without ``pump`` the debt is
+        credited under the lock and nothing is dispatched."""
         if n < 0:
             raise ValueError(f"cannot step a negative count ({n})")
+        if not pump:
+            with self._locked("step", sid=sid):
+                s = self._live(sid)
+                s.pending_steps += int(n)
+                return self._info(s)
+        credit = _Credit(sid, int(n))
+        with self._credits_lock:
+            self._credits.append(credit)
         with self._locked("step", sid=sid):
+            self._apply_credits(own=credit)
+            if credit.refused is not None:
+                raise credit.refused
             s = self.store.get(sid)
-            if s.state in DEAD_STATES:
-                raise ValueError(f"session {sid} is {s.state}")
-            s.pending_steps += int(n)
-            if pump:
-                t0 = time.perf_counter()
-                self.pump()
-                # dispatch latency attributed to the requesting tenant:
-                # how long this step call waited for its lane dispatches
-                self._m_phase.observe(time.perf_counter() - t0,
-                                      phase="dispatch", tenant=s.tenant)
+            if credit.coalesced:
+                self._m_coalesced.inc(family=s.family_key)
+                if s.pending_steps == 0:
+                    return self._info(s)  # another pump dispatched it all
+            t0 = time.perf_counter()
+            self.pump()
+            # dispatch latency attributed to the requesting tenant:
+            # how long this step call waited for its lane dispatches
+            self._m_phase.observe(time.perf_counter() - t0,
+                                  phase="dispatch", tenant=s.tenant)
             return self._info(s)
 
     def close(self, sid: str) -> dict:
@@ -359,9 +418,10 @@ class SessionService:
     # -- the pump ------------------------------------------------------------
 
     def pump(self) -> int:
-        """Apply every session's pending debt. Returns the number of
-        lane dispatches issued."""
+        """Apply every posted credit, then every session's pending debt.
+        Returns the number of lane dispatches issued."""
         with self._locked("pump"):
+            self._apply_credits()
             dispatches = 0
             for pool in list(self.pools.values()):
                 for lane in list(pool.lanes.values()):
@@ -369,6 +429,29 @@ class SessionService:
             self._drain_queue()
             self._refresh_gauges()
             return dispatches
+
+    def _apply_credits(self, own: Optional[_Credit] = None) -> None:
+        """Move every posted credit into its session's debt (under the
+        service lock), refusing those of dead or unknown sessions. A
+        credit other than ``own`` whose session holds a lane slot is
+        marked as coalesced: the pump that follows dispatches it."""
+        with self._credits_lock:
+            credits, self._credits = self._credits, []
+        for credit in credits:
+            try:
+                s = self._live(credit.sid)
+            except (KeyError, ValueError) as exc:
+                credit.refused = exc
+                continue
+            s.pending_steps += credit.n
+            credit.coalesced = (credit is not own
+                                and s.placement() is not None)
+
+    def _live(self, sid: str) -> Session:
+        s = self.store.get(sid)
+        if s.state in DEAD_STATES:
+            raise ValueError(f"session {sid} is {s.state}")
+        return s
 
     def _pump_lane(self, pool: LanePool, lane) -> int:
         dispatches = 0

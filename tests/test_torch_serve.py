@@ -135,6 +135,52 @@ def test_service_matches_the_jax_service(backend):
                                   expected_grid(SPEC, 6, 3 + 5 * 0 + 9 + 6))
 
 
+@pytest.mark.parametrize("backend", ["packed", "cuda"])
+def test_sequential_steps_issue_the_jax_service_dispatches(backend):
+    """Rounds of ``step(..., pump=False)`` then ``pump()``, and lone
+    ``step`` calls, on five sessions over lanes of 4 and 1: the port's
+    credit list changes no dispatch count a lone caller issues."""
+    from gameoflifewithactors_torch.obs.spans import TRACER
+    from gameoflifewithactors_tpu.obs.spans import TRACER as J_TRACER
+
+    port, _ = make_service()
+    ref = make_jax_service()
+    pairs = [(port.create("t", dict(SPEC, backend=backend), fill=FILL,
+                          rng_seed=i)["sid"],
+              ref.create("t", dict(SPEC, backend="packed"), fill=FILL,
+                         rng_seed=i)["sid"]) for i in range(5)]
+    counts = {"port": 0, "ref": 0}
+
+    def tap(side):
+        def count(span):
+            if span.name == "lane.dispatch":
+                counts[side] += 1
+        return count
+
+    taps = (tap("port"), tap("ref"))
+    TRACER.add_listener(taps[0])
+    J_TRACER.add_listener(taps[1])
+    try:
+        for r in range(3):
+            for k, (sa, sb) in enumerate(pairs):
+                if (k + r) % 4:
+                    port.step(sa, 2 + (k * r) % 5, pump=False)
+                    ref.step(sb, 2 + (k * r) % 5, pump=False)
+            assert port.pump() == ref.pump()
+            sa, sb = pairs[r]
+            assert port.step(sa, 3 + r)["generation"] == \
+                ref.step(sb, 3 + r)["generation"]
+            assert port.pump() == ref.pump() == 0
+            assert counts["port"] == counts["ref"]
+    finally:
+        TRACER.remove_listener(taps[0])
+        J_TRACER.remove_listener(taps[1])
+    assert counts["port"] > 0
+    for sa, sb in pairs:
+        assert port.info(sa)["generation"] == ref.info(sb)["generation"]
+        np.testing.assert_array_equal(port.grid(sa), ref.grid(sb))
+
+
 def test_cuda_lane_steps_n_where_the_jax_pallas_lane_steps_n_times_g():
     """Pins today's behaviour of the JAX package: its "pallas" lane runs
     ``n`` chunks of ``gens_per_exchange`` = 8 generations for
