@@ -12,6 +12,11 @@ the seed (:mod:`.inputs`) and reads the program's outputs only to judge
 them. Where it follows the program from the program's own state (a tick
 drawn from the window, a session's later request), the start is checked
 apart, from the soup.
+
+A universe over several cards is checked band by band
+(:func:`compare_bands`): each card's band, with ``radius x generations``
+rows of its neighbours above and below, is stepped on that card, so the
+reference never gathers the torus on one card.
 """
 
 from __future__ import annotations
@@ -73,3 +78,44 @@ def compare_each(reference: Reference, befores: List[torch.Tensor],
         for w, a in zip(want, afters[i:i + chunk]):
             out.append(mismatched_cells(w, a))
     return out
+
+
+# generations a band is stepped before the next band's turn: the cards'
+# queues are filled in turn, so they run side by side
+BAND_ROUND = 4
+
+
+def torus_rows(bands: List[torch.Tensor], start: int, count: int,
+               device: torch.device) -> torch.Tensor:
+    """Rows ``start .. start + count`` of the torus that ``bands`` tile
+    from the top down (wrapped round), copied to ``device``."""
+    h = bands[0].shape[-2]
+    total = h * len(bands)
+    pieces, row = [], start % total
+    while count:
+        i, off = divmod(row, h)
+        take = min(count, h - off)
+        pieces.append(bands[i][off:off + take].to(device))
+        count -= take
+        row = (row + take) % total
+    return torch.cat(pieces)
+
+
+def compare_bands(reference: Reference, before: List[torch.Tensor],
+                  after: List[torch.Tensor], gens: int,
+                  radius: int = 1) -> int:
+    """Cells of the program's full-width row bands ``after`` (one torus,
+    top band first, each on its card) that differ from the reference's
+    ``gens`` generations of the bands ``before``. Each band is stepped on
+    its card with ``radius * gens`` rows of the torus above and below it,
+    on the torus: what wraps round the extended band reaches no deeper
+    than those margin rows, so the band's own rows are exact."""
+    h = before[0].shape[-2]
+    margin = radius * gens
+    ext = [torus_rows(before, i * h - margin, h + 2 * margin, a.device)
+           for i, a in enumerate(after)]
+    for done in range(0, gens, BAND_ROUND):
+        n = min(BAND_ROUND, gens - done)
+        ext = [reference.run(e, n) for e in ext]
+    return sum(mismatched_cells(e[margin:margin + h], a)
+               for e, a in zip(ext, after))

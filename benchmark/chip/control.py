@@ -7,7 +7,9 @@ with one guarantee of the configuration broken, must come out not correct.
 The configurations state no precision, so the control breaks the torus:
 the plain reference steps with dead cells beyond the edges, on packed
 words, where the program's kernel would (``Engine._run`` of the batch
-cells, the lane runner of the sessions cell). Each seed drives the cell's
+cells, the lane runner of the sessions cell). On a mesh it steps each
+card's band alone, without the row exchange, with dead cells beyond the
+band. Each seed drives the cell's
 whole run through its driver, at the cell's own size on the card, and
 prints the checks; the smallest reading over the seeds is the upper
 reading of each limit.
@@ -49,6 +51,11 @@ def install(traffic: dict, config: dict, patch) -> None:
             return run_lane
 
         patch(lanes, "lane_runner", runner)
+    elif traffic.get("mesh") is not None:
+        from gameoflifewithactors_torch.engine import Engine
+
+        patch(Engine, "_run", lambda self, state, n: state.with_parts(
+            step(part, n) for part in state.parts))
     else:
         from gameoflifewithactors_torch.engine import Engine
 

@@ -1,8 +1,9 @@
 """Shared pieces of the benchmark's CPU tests.
 
 ``drive`` runs a cell through its driver on the CPU at a small size (the
-harness's look for a card is skipped: ``run.main`` refuses without one)
-and returns the result line. Tests that need the card take the ``cuda``
+harness's look for a card is skipped: ``run.main`` refuses without one),
+on as many CPU positions as the cell asks for cards, and returns the
+result line. Tests that need the card take the ``cuda``
 fixture, which skips without one; the decision is taken there, never at
 import.
 """
@@ -21,6 +22,10 @@ SMALL = {
     "conway-sessions-1024": {"shape": [64, 64], "sessions": 8, "tenants": 2,
                              "clients": 2, "step_generations": 8,
                              "sample_share": 0.5},
+    # four bands of 64 rows on four CPU positions; B2's slab form runs its
+    # plain version there
+    "conway-mesh4-65536": {"shape": [256, 1024], "tick_generations": 64,
+                           "backend": "cuda"},
 }
 
 
@@ -38,13 +43,14 @@ def names_of(cell: str) -> tuple:
 def drive_cpu(cell: str, seed: int = 2**31 + 11, seconds: float = 0.3,
               trace: bool = False, **overrides) -> dict:
     bench = manifest.load()
+    chips = manifest.workload(bench, cell)["chips"]
     config_name, traffic_name = names_of(cell)
     traffic = dict(manifest.traffic(traffic_name), **SMALL[cell])
     traffic.update(overrides)
     spec = run.RunSpec(
         cell=cell, config=manifest.config(bench, config_name),
         traffic=traffic, seed=seed, seconds=seconds, trace=trace,
-        devices=[torch.device("cpu")])
+        devices=[torch.device("cpu")] * chips)
     out = run.drive(spec)
     if trace:
         out["peaks"] = {"int_ops_per_sec": 1.6727e13,

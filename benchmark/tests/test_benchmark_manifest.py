@@ -87,7 +87,7 @@ def test_per_layer_rules(bench):
         layers.setdefault(m["layer"], []).append(m["name"])
     assert set(layers) == {"warm start", "facade", "engine and launcher",
                            "front end and service", "lanes", "kernels",
-                           "device"}
+                           "device", "mesh"}
 
 
 def test_cells_and_files(bench):
