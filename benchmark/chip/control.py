@@ -5,13 +5,13 @@ with one guarantee of the configuration broken, must come out not correct.
         [--seconds S]
 
 The configurations state no precision, so the control breaks the torus:
-the plain reference steps with dead cells beyond the edges, on packed
-words, where the program's kernel would (``Engine._run`` of the batch
-cells, the lane runner of the sessions cell). On a mesh it steps each
-card's band alone, without the row exchange, with dead cells beyond the
-band. Each seed drives the cell's
-whole run through its driver, at the cell's own size on the card, and
-prints the checks; the smallest reading over the seeds is the upper
+the plain reference that the configuration names steps with dead cells
+beyond the edges, in the configuration's layout, where the program's
+kernel would (``Engine._run`` of the batch cells, the lane runner of the
+sessions cell). On a mesh it steps each card's band alone, without the
+row exchange, with dead cells beyond the band. Each seed drives the
+cell's whole run through its driver, at the cell's own size on the card,
+and prints the checks; the smallest reading over the seeds is the upper
 reading of each limit.
 """
 
@@ -28,7 +28,7 @@ from .. import check, manifest, run
 
 
 def control_stepper(config: dict):
-    """The reference on packed words, with dead edges."""
+    """The configuration's reference on its layout, with dead edges."""
     reference = check.Reference(config)
     return lambda words, n: reference.run(words, n, torus=False)
 

@@ -133,7 +133,8 @@ def run(spec) -> dict:
     log.stop()
     trace = traced.trace if traced is not None else None
 
-    # the window has closed: free the program's state, then the reference
+    # the window has closed: free the program's state, then the reference.
+    # ``words``: the 32-cell words of one plane
     words = h * (w // box_rule.WORD)
     window = {"seconds": t1 - t0, "ticks": ticks,
               "generations": ticks * gens, "cells": h * w,
@@ -149,7 +150,7 @@ def run(spec) -> dict:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     reference = check.Reference(config)
-    soup = box_rule.pack_cells(
+    soup = reference.encode(
         inputs.soup((h, w), traffic["fill"], spec.seed, dev))
     tick_index, before, after = kept
     if mesh_shape is None:
@@ -159,8 +160,8 @@ def run(spec) -> dict:
     else:
         radius = config["neighbourhood"]["radius"]
         start_bad = check.compare_bands(
-            reference, list(soup.split(h // len(start_out))), start_out,
-            gens, radius)
+            reference, list(soup.split(h // len(start_out), dim=-2)),
+            start_out, gens, radius)
         del soup, start_out
         sampled_bad = check.compare_bands(reference, before, after, gens,
                                           radius)
@@ -183,6 +184,7 @@ def run(spec) -> dict:
             "window": window,
             "spans": hostspans.summary(window_spans),
             "words": words,
+            "planes": reference.planes,
             "trace": trace,
         },
     }

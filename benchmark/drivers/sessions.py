@@ -183,7 +183,7 @@ def run(spec) -> dict:
     # the reference: the warm-up request and every sampled request
     t_ref = time.perf_counter()
     reference = check.Reference(config)
-    soups = box_rule.pack_cells(
+    soups = reference.encode(
         inputs.soup((count, h, w), traffic["fill"], spec.seed, dev))
     index = {sid: i for i, sid in enumerate(sids)}
     warm_words = _words(warm["cells_hex"], h, wq, dev)

@@ -16,7 +16,10 @@ doubling partial sums; counts stay below 256, so ``uint8`` holds them.
 The packed layout that the program's outputs are read in, a row of 32
 cells per 32-bit word with cell (r, 32j+i) in bit i of word (r, j), is
 unpacked and packed here too (:func:`unpack_words`, :func:`pack_cells`),
-so that the comparison needs nothing of the program.
+so that the comparison needs nothing of the program. :func:`stepper`,
+:func:`encode` and :func:`planes` are what :class:`..check.Reference`
+asks of a reference: the bytes are unpacked from that layout, stepped,
+and packed again.
 """
 
 from __future__ import annotations
@@ -153,3 +156,24 @@ def pack_cells(cells: torch.Tensor) -> torch.Tensor:
         v = (flat[r0:r0 + block].to(torch.int64) * weights).sum(-1)
         out[r0:r0 + block] = (v - ((v >> 31) << 32)).to(torch.int32)
     return out.reshape(*cells.shape[:-1], cells.shape[-1] // WORD)
+
+
+def stepper(config: dict):
+    """``run(words, gens, torus=True)`` of ``(..., H, W/32)`` words under
+    the configuration's rule."""
+    rule = BoxRule.from_config(config)
+
+    def run_words(words: torch.Tensor, gens: int,
+                  torus: bool = True) -> torch.Tensor:
+        return pack_cells(run(unpack_words(words), rule, gens, torus=torus))
+    return run_words
+
+
+def encode(cells: torch.Tensor, config: dict) -> torch.Tensor:
+    """``(..., H, W)`` 0/1 cells as ``(..., H, W/32)`` words."""
+    return pack_cells(cells)
+
+
+def planes(config: dict) -> int:
+    """One plane of words."""
+    return 1

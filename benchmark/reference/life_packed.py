@@ -7,7 +7,8 @@ the same layout), adds them bit-sliced into a four-bit count, and applies
 the rule by testing the count for each birth and survival count. The
 torus wraps rows and words; without it the cells beyond the edges are
 dead. Written from the rule alone, in plain PyTorch; it imports nothing
-of the program.
+of the program. :func:`stepper`, :func:`encode` and :func:`planes` are
+what :class:`..check.Reference` asks of a reference.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import FrozenSet, List, Tuple
 
 import torch
+
+from .box_rule import pack_cells
 
 LOW31 = 0x7FFFFFFF
 
@@ -92,3 +95,20 @@ def run(x: torch.Tensor, born: FrozenSet[int], survive: FrozenSet[int],
     for _ in range(gens):
         x = step(x, born, survive, torus)
     return x
+
+
+def stepper(config: dict):
+    """``run(words, gens, torus=True)`` under the configuration's rule."""
+    born, survive = counts_of(config)
+    return lambda words, gens, torus=True: run(words, born, survive, gens,
+                                               torus)
+
+
+def encode(cells: torch.Tensor, config: dict) -> torch.Tensor:
+    """``(..., H, W)`` 0/1 cells as ``(..., H, W/32)`` words."""
+    return pack_cells(cells)
+
+
+def planes(config: dict) -> int:
+    """One plane of words."""
+    return 1

@@ -130,3 +130,109 @@ def test_packed_life_with_dead_edges_against_brute_force():
         want = brute(cells[i].numpy(), 1, False, config["born"],
                      config["survive"], torus=False)
         assert (got[i].numpy() == want).all()
+
+
+def generations_config(born, survive, states):
+    """A Generations rule as a configuration file states it: counts of
+    the eight neighbours in state 1, as inclusive intervals."""
+    return {"neighbourhood": {"shape": "moore", "radius": 1,
+                              "include_center": False},
+            "born": [[c, c] for c in sorted(born)],
+            "survive": [[c, c] for c in sorted(survive)],
+            "states": states, "reference": "generations"}
+
+
+def brute_generations(cells: np.ndarray, born, survive, states,
+                      torus=True) -> np.ndarray:
+    """A Generations rule, cell by cell: only state 1 counts."""
+    h, w = cells.shape
+    out = np.zeros_like(cells)
+    for y, x in itertools.product(range(h), range(w)):
+        count = 0
+        for dy, dx in itertools.product((-1, 0, 1), repeat=2):
+            yy, xx = y + dy, x + dx
+            if (dy, dx) == (0, 0):
+                continue
+            if torus:
+                count += cells[yy % h, xx % w] == 1
+            elif 0 <= yy < h and 0 <= xx < w:
+                count += cells[yy, xx] == 1
+        s = int(cells[y, x])
+        if s == 0:
+            out[y, x] = 1 if count in born else 0
+        elif s == 1:
+            out[y, x] = 1 if count in survive else 2 % states
+        else:
+            out[y, x] = (s + 1) % states
+    return out
+
+
+GENERATIONS_RULES = {
+    "brians-brain": ({2}, set(), 3),            # B2/S/C3
+    "star-wars": ({2}, {3, 4, 5}, 4),           # B2/S345/C4
+    "life-c2": ({3}, {2, 3}, 2),                # B3/S23
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERATIONS_RULES))
+@pytest.mark.parametrize("torus", [True, False])
+def test_generations_against_brute_force(name, torus):
+    from benchmark.reference import generations
+
+    born, survive, states = GENERATIONS_RULES[name]
+    config = generations_config(born, survive, states)
+    run = generations.stepper(config)
+    gen = torch.Generator().manual_seed(11)
+    cells = torch.randint(0, states, (12, 64), generator=gen,
+                          dtype=torch.uint8)
+    state = generations.encode(cells, config)
+    want = cells.numpy()
+    for _ in range(4):
+        state = run(state, 1, torus)
+        want = brute_generations(want, born, survive, states, torus)
+        got = generations.decode(state, generations.planes(config))
+        assert (got.numpy() == want).all()
+
+
+@pytest.mark.parametrize("torus", [True, False])
+def test_generations_with_two_states_is_life_packed_bit_for_bit(torus):
+    from benchmark.reference import generations
+
+    born, survive, states = GENERATIONS_RULES["life-c2"]
+    config = generations_config(born, survive, states)
+    assert generations.planes(config) == 1
+    gen = torch.Generator().manual_seed(12)
+    words = box_rule.pack_cells(
+        (torch.rand((3, 20, 96), generator=gen) < 0.4).to(torch.uint8))
+    got = generations.stepper(config)(words, 6, torus)
+    want = life_packed.run(words, frozenset(born), frozenset(survive), 6,
+                           torus)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("states", [2, 3, 4, 5, 8, 17, 256])
+def test_generations_encode_then_decode_is_the_identity(states):
+    from benchmark.reference import generations
+
+    config = generations_config({2}, set(), states)
+    b = generations.planes(config)
+    assert b == max(1, (states - 1).bit_length())
+    cells = (torch.arange(2 * 16 * 64) % states).to(torch.uint8).reshape(
+        2, 16, 64)
+    state = generations.encode(cells, config)
+    assert state.shape == ((2, 16, 2) if b == 1 else (2, b, 16, 2))
+    assert torch.equal(generations.decode(state, b), cells)
+
+
+def test_generations_layout_is_the_programs():
+    from gameoflifewithactors_torch.models.generations import (
+        parse_generations)
+    from gameoflifewithactors_torch.ops.packed_generations import (
+        pack_generations_for)
+    from benchmark.reference import generations
+
+    rule = parse_generations("B2/S345/C4")
+    config = generations_config({2}, {3, 4, 5}, 4)
+    cells = torch.randint(0, 4, (9, 64), dtype=torch.uint8)
+    assert torch.equal(generations.encode(cells, config),
+                       pack_generations_for(cells, rule))
